@@ -16,14 +16,18 @@ M4 from eprint 2023/323 §5.1), and internal matrix
 Two-to-one hash (`src/poseidon2.rs:27-36`): ``hash(l, r)`` permutes
 ``[l, r, 0..0]`` and returns ``state[0]``.
 
-States are *stacked* ``(..., 16)`` uint32 arrays.  Counterpart of
-``cairo_m_tpu.hash.poseidon2`` on its NumPy path only: the prover hashes
-Poseidon2 on the host (adapter Merkle trees, witness generation).
+States are *stacked* ``(..., 16)`` arrays.  Counterpart of
+``cairo_m_tpu.hash.poseidon2``: the same round code runs on NumPy uint32
+arrays (``permute_np``, ``hash2_np``: the host path the prover uses for the
+adapter Merkle trees and witness generation) and on int64 torch tensors on
+their own device (``permute_t``, ``hash2_t``: the counterparts of the
+reference's ``permute_jax`` and ``hash2_jax``) through one op bundle.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..field import m31
 from .poseidon2_params import (  # noqa: F401
@@ -48,6 +52,20 @@ class _Ops:
 
 
 NP_OPS = _Ops(m31.add_np, m31.mul_np, np)
+
+
+class _TorchXp:
+    """The array functions `permute_stacked` calls, for tensors on one
+    device (round constants become int64 tensors there)."""
+
+    stack = staticmethod(torch.stack)
+    concatenate = staticmethod(torch.concatenate)
+
+    def __init__(self, device):
+        self.device = device
+
+    def asarray(self, a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=self.device)
 
 
 def _apply_m4_stacked(x, o: _Ops):
@@ -122,6 +140,20 @@ def permute_stacked(state, o: _Ops, params: Poseidon2Params = None):
 def permute_np(states: np.ndarray, params: Poseidon2Params = None):
     """Host batched permutation: (n, 16) -> (n, 16)."""
     return permute_stacked(np.asarray(states, dtype=np.uint32), NP_OPS, params)
+
+
+def permute_t(states: torch.Tensor, params: Poseidon2Params = None):
+    """Batched permutation on stacked (..., 16) int64 tensors holding M31
+    values, on the tensors' device."""
+    ops = _Ops(m31.add, m31.mul, _TorchXp(states.device))
+    return permute_stacked(states, ops, params)
+
+
+def hash2_t(left: torch.Tensor, right: torch.Tensor, params=None):
+    """Two-to-one hash on int64 tensors: permute([l, r, 0..0])[0]."""
+    zero = torch.zeros_like(left)
+    state = torch.stack([left, right] + [zero] * (T - 2), dim=-1)
+    return permute_t(state, params)[..., 0]
 
 
 def hash2_np(left: np.ndarray, right: np.ndarray, params=None):

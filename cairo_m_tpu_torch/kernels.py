@@ -1,9 +1,10 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 Both kernels live in ``csrc/*.cu`` with a plain C interface.  On first use
-they are compiled by ``nvcc`` for ``sm_90a`` into one shared library under
+each source is compiled by its own ``nvcc`` for ``sm_90a`` (all started
+together) and the objects are linked into one shared library under
 ``_build/`` (named by a hash of the sources, so an edited source never loads
-a stale library) and bound with ``ctypes``.  Nothing here runs at import
+a stale library), bound with ``ctypes``.  Nothing here runs at import
 time: the CPU-only test environment imports every module and has no
 ``nvcc``.
 
@@ -24,10 +25,8 @@ import threading
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 launches = {"blake2s_leaves": 0, "wtape_run_plan": 0}
 
@@ -65,30 +64,39 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libcm_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds, verbose: bool):
+    """Run commands in parallel; raise with the output of any that fails."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} failed ({p.returncode}):\n{out}")
+        if verbose:
+            print(out, end="", flush=True)
+
+
 def build(verbose: bool = False) -> str:
     """Compile csrc/*.cu into the shared library (if not built yet)."""
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, *_sources()]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-            )
-        if verbose:
-            print(res.stdout + res.stderr, flush=True)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    extra = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in _sources()]
+        _run_all(
+            [[nvcc, *NVCC_FLAGS, *extra, "-c", "-o", o, s]
+             for o, s in zip(objs, _sources())],
+            verbose,
+        )
+        lib_tmp = os.path.join(tmp, "lib.so")
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib_tmp, *objs]], verbose)
+        os.replace(lib_tmp, path)
     return path
 
 

@@ -1,5 +1,5 @@
 """Prover configuration (reference prover_config.rs); counterpart of
-``cairo_m_tpu.prover.config`` for the native framing."""
+``cairo_m_tpu.prover.config``."""
 
 from __future__ import annotations
 
@@ -57,11 +57,23 @@ REGULAR_96_BITS = PcsConfig(
     ),
 )
 
-def test_config(n_queries=12, pow_bits=4) -> PcsConfig:
+# Same security numbers under the stwo framing: stwo's Blake2sChannel byte
+# framing + one mixed-degree Merkle tree per phase (stark/stwo_merkle.py).
+STWO_FRAMING_96_BITS = PcsConfig(
+    pow_bits=16,
+    fri_config=FriConfig(
+        log_blowup_factor=1, log_last_layer_degree_bound=0, n_queries=80
+    ),
+    framing="stwo",
+)
+
+
+def test_config(n_queries=12, pow_bits=4, framing="native") -> PcsConfig:
     """Small config for fast tests (NOT production security)."""
     return PcsConfig(
         pow_bits=pow_bits,
         fri_config=FriConfig(
             log_blowup_factor=1, log_last_layer_degree_bound=0, n_queries=n_queries
         ),
+        framing=framing,
     )

@@ -34,7 +34,8 @@ from .stark.fri import qscalar_add, qscalar_inv, qscalar_mul, qscalar_sub
 
 P = (1 << 31) - 1
 
-# (device, scale key, blowup) -> CommitmentPhase of the preprocessed tables
+# (device, scale key, blowup, framing) -> CommitmentPhase of the
+# preprocessed tables
 _PRE_PHASE_CACHE: dict = {}
 # (device, comp name, scale key) -> row-order device stack of the
 # component's preprocessed columns (rc enumerations, bitwise tables)
@@ -76,16 +77,18 @@ def upload_rows(rows, device) -> torch.Tensor:
     return torch.from_numpy(st).to(device).long()
 
 
-def preprocessed_phase(comps: ComponentSet, blowup: int, device):
+def preprocessed_phase(comps: ComponentSet, config, device):
     """The commitment phase of the preprocessed tables (proof-independent,
-    so cached per (device, protocol scale, blowup))."""
-    key = (str(device), SCALE.key(), blowup)
+    so cached per (device, protocol scale, blowup, framing))."""
+    blowup = config.fri_config.log_blowup_factor
+    key = (str(device), SCALE.key(), blowup, config.framing)
     cached = _PRE_PHASE_CACHE.get(key)
     if cached is None:
         pre_cols, _ = comps.preprocessed_columns()
         cached = pcs.CommitmentPhase(
             [(l, domain.to_fft_order(upload_rows([c], device))) for l, c in pre_cols],
             blowup,
+            framing=config.framing,
         )
         _PRE_PHASE_CACHE.clear()  # hold at most one scale's tables
         _PRE_PHASE_CACHE[key] = cached
@@ -170,9 +173,7 @@ def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *, device):
 
     # phase 0: preprocessed (cached; only the root mixing runs per proof)
     _, pre_owners = comps.preprocessed_columns()
-    scheme.commit_phase(
-        preprocessed_phase(comps, config.fri_config.log_blowup_factor, device)
-    )
+    scheme.commit_phase(preprocessed_phase(comps, config, device))
 
     # claim: mix log sizes; phase 1: trace
     for comp in comps.all:
@@ -273,6 +274,9 @@ def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *, device):
             trace=t_trace - t0, interaction=t_inter - t_trace,
             composition=t_comp - t_inter, pcs=t_end - t_comp, total=t_end - t0,
         )
+        if config.framing == "stwo":
+            # inside the phases above: host stwo tree builds + decommit
+            timing["host_trees"] = scheme.host_tree_s
 
     return Proof(
         log_sizes=comps.log_sizes(),

@@ -6,6 +6,9 @@
   over the extended domain (device).
 - `evaluate_at_point`: the same combination at the OODS point from sampled
   mask values (host scalars) — the verifier's composition check.
+- `assert_constraints`: raw-trace constraint evaluation pinpointing failing
+  (component, constraint, row) — the host debug tool behind
+  `prover/debug_tools.py`.
 
 Counterpart of ``cairo_m_tpu.prover.stark.framework`` on torch tensors;
 the plans are recorded by the same host code, so they are identical.
@@ -737,3 +740,48 @@ def vanishing_at_qpoint(log_size: int, z):
 
 def qscalar_sub_c(a, c):
     return ((a[0] - c) % P,) + tuple(a[1:])
+
+
+# ---------------------------------------------------------------------------
+# Trace-check debug tool
+# ---------------------------------------------------------------------------
+
+
+def assert_constraints(component, trace_rows, interaction_cols, claimed_sum,
+                       preprocessed_rows=()):
+    """Evaluate all constraints on the raw trace; returns list of
+    (constraint_index, first_bad_row) for any violations."""
+    n = 1 << component.log_size
+
+    def tg(idx, offset):
+        col = trace_rows[idx]
+        return Val(np.roll(col, -offset) if offset else col, False, HostArrayOps)
+
+    def pg(idx, offset):
+        return Val(preprocessed_rows[idx], False, HostArrayOps)
+
+    def ig(idx, offset):
+        limbs = interaction_cols[idx]
+        if offset:
+            limbs = tuple(np.roll(x, -offset) for x in limbs)
+        return Val(limbs, True, HostArrayOps)
+
+    shift = Val(
+        tuple(
+            np.full(n, s, dtype=np.uint32)
+            for s in logup_shift_scalar(claimed_sum, component.log_size)
+        ),
+        True,
+        HostArrayOps,
+    )
+    ev = EvalAtRow(HostArrayOps, tg, ig, shift, pg)
+    component.evaluate(ev)
+    failures = []
+    for k, c in enumerate(ev.constraints):
+        v = c.as_ext().v
+        bad = np.nonzero(
+            (v[0] != 0) | (v[1] != 0) | (v[2] != 0) | (v[3] != 0)
+        )
+        if bad[0].size:
+            failures.append((k, int(bad[-1][0])))
+    return failures

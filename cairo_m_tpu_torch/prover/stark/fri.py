@@ -30,6 +30,7 @@ degree bound.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -37,7 +38,7 @@ import torch
 
 from ...field import m31
 from ...field.qm31 import qadd, qmul, qmul_m31, qmul_np
-from . import domain, merkle
+from . import domain, merkle, stwo_merkle
 
 P = (1 << 31) - 1
 INV2 = (P + 1) // 2
@@ -264,22 +265,33 @@ class FriProof:
 
     @staticmethod
     def from_json_obj(o):
+        def _dec(d):
+            if isinstance(d, dict) and d.get("format") == "stwo":
+                return stwo_merkle.StwoPhaseOpening.from_json_obj(d)
+            return merkle.MerkleDecommitment.from_json_obj(d)
+
         return FriProof(
             [bytes.fromhex(r) for r in o["inner_roots"]],
-            [merkle.MerkleDecommitment.from_json_obj(d) for d in o["inner_decommitments"]],
+            [_dec(d) for d in o["inner_decommitments"]],
             [tuple(q) for q in o["last_layer"]],
         )
 
 
 class FriProver:
-    def __init__(self, channel, columns, config: FriConfig):
+    def __init__(self, channel, columns, config: FriConfig, framing="native"):
         """columns: list of (circle_log_size, qm31 limb-tuple, FFT/natural
         order), any order; sorted internally descending.  All folding runs
         in natural order (contiguous-half pairs); every committed layer and
         the last layer are bit-reversed into commit order, so the emitted
         proof bytes are identical to a commit-order prover.  Layers at or
-        below ``_FRI_HOST_LOG`` run on the host."""
+        below ``_FRI_HOST_LOG`` run on the host.
+
+        ``framing="stwo"``: each committed layer is a mixed-degree stwo
+        tree over its 4 limb columns (stwo_merkle.py), built on the host
+        from a bit-reversed host copy; folds and transcript order are
+        unchanged."""
         self.config = config
+        self.host_tree_s = 0.0  # stwo framing: host seconds in layer trees
         by_log: dict[int, list] = {}
         for l, c in columns:
             by_log.setdefault(int(l), []).append(c)
@@ -303,7 +315,15 @@ class FriProver:
                 on_host = True
             # layers live in NATURAL (fft) order; each commit bit-reverses
             # its own copy so the committed bytes stay protocol-identical
-            tree = merkle.commit(domain.bit_reverse(layer, k))
+            commit_layer = domain.bit_reverse(layer, k)
+            if framing == "stwo":
+                if not on_host:
+                    commit_layer = commit_layer.to(torch.int32).cpu().numpy()
+                t = time.perf_counter()
+                tree = stwo_merkle.StwoMerkleTree(list(commit_layer))
+                self.host_tree_s += time.perf_counter() - t
+            else:
+                tree = merkle.commit(commit_layer)
             self.inner_trees.append((k, tree))
             channel.mix_root(tree.root())
             alpha = channel.draw_felt()
@@ -353,6 +373,16 @@ class FriProver:
         ]
         channel.mix_felts(self.last_layer)
 
+    def stwo_decommit(self, queries):
+        """(roots, StwoPhaseOpenings) for the stwo framing."""
+        roots, openings = [], []
+        for log_k, tree in self.inner_trees:
+            pairs = pair_positions(queries, self.max_log, log_k)
+            roots.append(tree.root())
+            queried, dec = tree.decommit({log_k: pairs})
+            openings.append(stwo_merkle.StwoPhaseOpening(queried, dec))
+        return roots, openings
+
     def decommit_plans(self, queries):
         """(roots, DecommitPlans) — callers batch these with the phase
         trees' plans into ONE device->host pull (merkle.finish_plans)."""
@@ -371,10 +401,14 @@ class FriProver:
 
 
 class FriVerifier:
-    def __init__(self, channel, config: FriConfig, column_logs, proof: FriProof):
+    def __init__(
+        self, channel, config: FriConfig, column_logs, proof: FriProof,
+        framing="native",
+    ):
         """column_logs: log sizes of the input columns (same multiset as the
         prover's).  Replays the channel, recording folding alphas."""
         self.config = config
+        self.framing = framing
         self.column_logs = sorted(set(int(l) for l in column_logs), reverse=True)
         self.counts = {
             l: sum(1 for x in column_logs if x == l) for l in self.column_logs
@@ -444,6 +478,18 @@ class FriVerifier:
         ):
             log_k = self.max_log - 1 - idx
             pairs = pair_positions(queries, self.max_log, log_k)
+            if self.framing == "stwo":
+                if not isinstance(dec, stwo_merkle.StwoPhaseOpening):
+                    return False
+                if not stwo_merkle.verify_decommitment(
+                    root, [log_k] * 4, {log_k: pairs}, dec.queried, dec.dec
+                ):
+                    return False
+                layer_values.append({
+                    p: tuple(dec.queried[j][i] for j in range(4))
+                    for i, p in enumerate(pairs)
+                })
+                continue
             if not merkle.verify_decommitment(root, log_k, 4, pairs, dec):
                 return False
             vals = {}

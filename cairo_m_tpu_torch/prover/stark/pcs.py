@@ -1,11 +1,19 @@
 """Polynomial commitment scheme: commit phases -> OODS sampling -> DEEP
 quotients -> FRI -> PoW -> query decommitment.
 
-Counterpart of ``cairo_m_tpu.prover.stark.pcs`` for the native framing
-(one Merkle tree per (phase, log_size) group).  A *phase* is one logical
+Counterpart of ``cairo_m_tpu.prover.stark.pcs``.  A *phase* is one logical
 commitment (preprocessed / trace / interaction / composition) holding many
-M31 columns; its roots are mixed largest-first.  Transcript order within
-`prove_values`:
+M31 columns.  Two framings (``PcsConfig.framing``):
+
+- ``"native"``: this framework's channel framing and one dense Merkle tree
+  per (phase, log_size) group, built on the columns' device (`merkle.py`);
+  the roots are mixed largest-first;
+- ``"stwo"``: stwo's ``Blake2sChannel`` byte framing
+  (``cairo_m_tpu.prover.stark.stwo_channel``) and ONE mixed-degree tree per
+  phase, built on the host from one pull of the phase's committed columns
+  (`stwo_merkle.py`).
+
+Transcript order within `prove_values`:
 
 1. mix all sampled values (canonical (phase, column, point) order);
 2. ``random_coeff = draw`` (quotient alpha);
@@ -20,14 +28,16 @@ folds, the last-layer degree, and the PoW.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from cairo_m_tpu.prover.stark.channel import Blake2sChannel
+from cairo_m_tpu.prover.stark.stwo_channel import StwoBlake2sChannel
 
-from . import domain, fft, fri, merkle, quotients
+from . import domain, fft, fri, merkle, quotients, stwo_merkle
 
 P = (1 << 31) - 1
 
@@ -45,8 +55,11 @@ def _commit_pipeline(stacked, trace_log: int, commit_log: int):
 class PcsConfig:
     pow_bits: int = 16
     fri_config: fri.FriConfig = field(default_factory=fri.FriConfig)
+    framing: str = "native"  # or "stwo" (see the module docstring)
 
     def make_channel(self):
+        if self.framing == "stwo":
+            return StwoBlake2sChannel()
         return Blake2sChannel()
 
     def mix_into(self, channel):
@@ -55,18 +68,26 @@ class PcsConfig:
         channel.mix_u64(self.fri_config.log_last_layer_degree_bound)
         channel.mix_u64(self.fri_config.n_queries)
 
+    def security_bits(self) -> int:
+        return (
+            self.pow_bits
+            + self.fri_config.log_blowup_factor * self.fri_config.n_queries
+        )
+
 
 class CommitmentPhase:
-    """One committed phase: columns grouped by log_size, one LDE + one
-    Merkle tree per group."""
+    """One committed phase: columns grouped by log_size, one LDE per group;
+    one Merkle tree per group (native framing) or one mixed-degree tree over
+    all columns (stwo framing)."""
 
-    def __init__(self, columns_fft, log_blowup: int):
+    def __init__(self, columns_fft, log_blowup: int, framing: str = "native"):
         """columns_fft: list of (trace_log_size, fft-order M31 evals) —
         1-D entries are single columns, 2-D entries are (k, n) stacks of k
         columns of that log size, all int64 tensors on one device.
 
         Each column is LDE'd by the blowup and committed on the extended
         domain.  The *commit log size* of a column = trace_log + blowup."""
+        self.framing = framing
         self.trace_logs = []
         # group columns by trace log (stable order within group)
         self.group_index = {}  # column index -> (trace_log, position in group)
@@ -86,6 +107,7 @@ class CommitmentPhase:
         self.stacked_coeffs = {}  # trace_log -> (k, n) device
         self.stacked_ext = {}  # commit_log -> (k, 2n) device, FFT order
         self.trees = {}
+        stacked_commit = {}  # commit_log -> (k, 2n) device, commit order
         for l in sorted(groups, reverse=True):
             cl = l + log_blowup
             pieces = groups[l]
@@ -93,7 +115,16 @@ class CommitmentPhase:
             coeffs, ext_cols, commit_cols = _commit_pipeline(stacked, l, cl)
             self.stacked_coeffs[l] = coeffs
             self.stacked_ext[cl] = ext_cols
-            self.trees[cl] = merkle.MerkleTree(commit_cols, defer_top=True)
+            if framing == "stwo":
+                stacked_commit[cl] = commit_cols
+            else:
+                self.trees[cl] = merkle.MerkleTree(commit_cols, defer_top=True)
+        # host seconds spent building the stwo tree; a proof adds them to
+        # its own count once (`CommitmentSchemeProver.commit_phase`)
+        self.host_tree_s = 0.0
+        if framing == "stwo":
+            self.stwo_tree = self._stwo_tree(stacked_commit, log_blowup)
+            return
         # ONE device->host pull for every tree's top level, then the host
         # pyramids
         logs = sorted(self.trees, reverse=True)
@@ -108,11 +139,35 @@ class CommitmentPhase:
                 self.trees[cl].finish_host(tops[:, off : off + m])
                 off += m
 
+    def _stwo_tree(self, stacked_commit, log_blowup: int):
+        """ONE device->host pull of every commit-order stack, then one
+        mixed-degree host tree over the columns in phase column order."""
+        logs = sorted(stacked_commit, reverse=True)
+        flat = torch.cat([stacked_commit[cl].reshape(-1) for cl in logs])
+        # M31 values fit in int32: half the bytes of the int64 carrier
+        flat = flat.to(torch.int32).cpu().numpy().view(np.uint32)
+        pulled, off = {}, 0
+        for cl in logs:
+            k = int(stacked_commit[cl].shape[0])
+            pulled[cl] = flat[off : off + (k << cl)].reshape(k, 1 << cl)
+            off += k << cl
+        cols = []
+        for ci in range(len(self.trace_logs)):
+            l, pos = self.group_index[ci]
+            cols.append(pulled[l + log_blowup][pos])
+        t = time.perf_counter()
+        tree = stwo_merkle.StwoMerkleTree(cols)
+        self.host_tree_s = time.perf_counter() - t
+        return tree
+
     def roots(self):
+        if self.framing == "stwo":
+            return [(max(self.commit_logs), self.stwo_tree.root())]
         return [(cl, self.trees[cl].root()) for cl in sorted(self.trees, reverse=True)]
 
     def mix_roots(self, channel):
-        """Mix all tree roots largest-first."""
+        """Mix all tree roots largest-first (stwo framing: the single
+        mixed-degree root)."""
         for _, r in self.roots():
             channel.mix_root(r)
 
@@ -152,11 +207,24 @@ class CommitmentPhase:
         return out, off
 
 
+def _dec_from_json(phase_obj):
+    """Deserialize a per-phase decommitment: stwo opening (tagged with
+    ``format: stwo``) or the native per-log_size MerkleDecommitment map."""
+    if isinstance(phase_obj, dict) and phase_obj.get("format") == "stwo":
+        return stwo_merkle.StwoPhaseOpening.from_json_obj(phase_obj)
+    return {
+        int(l): merkle.MerkleDecommitment.from_json_obj(d)
+        for l, d in phase_obj.items()
+    }
+
+
 @dataclass
 class PcsProof:
     phase_roots: list  # per phase: [(commit_log, root_bytes)]
     sampled_values: list  # per phase: [col][point] qm31 tuple
-    decommitments: list  # per phase: {commit_log: MerkleDecommitment}
+    # per phase: {commit_log: MerkleDecommitment} (native) or
+    # StwoPhaseOpening (stwo)
+    decommitments: list
     fri_proof: fri.FriProof
     pow_nonce: int
 
@@ -170,7 +238,9 @@ class PcsProof:
                 for phase in self.sampled_values
             ],
             "decommitments": [
-                {str(l): d.to_json_obj() for l, d in phase.items()}
+                phase.to_json_obj()
+                if isinstance(phase, stwo_merkle.StwoPhaseOpening)
+                else {str(l): d.to_json_obj() for l, d in phase.items()}
                 for phase in self.decommitments
             ],
             "fri_proof": self.fri_proof.to_json_obj(),
@@ -185,13 +255,7 @@ class PcsProof:
                 [[tuple(v) for v in col] for col in phase]
                 for phase in o["sampled_values"]
             ],
-            [
-                {
-                    int(l): merkle.MerkleDecommitment.from_json_obj(d)
-                    for l, d in phase.items()
-                }
-                for phase in o["decommitments"]
-            ],
+            [_dec_from_json(phase) for phase in o["decommitments"]],
             fri.FriProof.from_json_obj(o["fri_proof"]),
             o["pow_nonce"],
         )
@@ -202,17 +266,23 @@ class CommitmentSchemeProver:
         self.channel = channel
         self.config = config
         self.phases: list[CommitmentPhase] = []
+        self.host_tree_s = 0.0  # stwo framing: host tree build + decommit
 
     def commit(self, columns_fft):
         """Commit a phase; mixes its roots into the channel."""
         phase = CommitmentPhase(
-            columns_fft, self.config.fri_config.log_blowup_factor
+            columns_fft,
+            self.config.fri_config.log_blowup_factor,
+            framing=self.config.framing,
         )
         return self.commit_phase(phase)
 
     def commit_phase(self, phase: CommitmentPhase):
         """Commit an already-built phase (e.g. the cached preprocessed
         tables, whose columns are proof-independent)."""
+        # a cached phase's tree counts for the proof that built it
+        self.host_tree_s += phase.host_tree_s
+        phase.host_tree_s = 0.0
         phase.mix_roots(self.channel)
         self.phases.append(phase)
         return len(self.phases) - 1
@@ -268,7 +338,10 @@ class CommitmentSchemeProver:
             for l, batches in sorted(grouped.items(), reverse=True)
         ]
         # 3. FRI commit
-        fri_prover = fri.FriProver(channel, quotient_cols, self.config.fri_config)
+        fri_prover = fri.FriProver(
+            channel, quotient_cols, self.config.fri_config,
+            framing=self.config.framing,
+        )
         # 4. PoW
         nonce = channel.grind(self.config.pow_bits)
         channel.mix_u64(nonce)
@@ -281,6 +354,27 @@ class CommitmentSchemeProver:
                 f"n_queries={n_queries} exceeds the 2^{max_log} query domain"
             )
         queries = channel.draw_queries(n_queries, max_log)
+        if self.config.framing == "stwo":
+            # 6'. stwo decommit: one mixed-tree opening per phase + one per
+            # FRI layer (host trees)
+            t = time.perf_counter()
+            decommitments = []
+            for phase in self.phases:
+                qpl = {
+                    cl: fri.pair_positions(queries, max_log, cl)
+                    for cl in set(phase.commit_logs)
+                }
+                queried, dec = phase.stwo_tree.decommit(qpl)
+                decommitments.append(stwo_merkle.StwoPhaseOpening(queried, dec))
+            fri_roots, fri_openings = fri_prover.stwo_decommit(queries)
+            self.host_tree_s += fri_prover.host_tree_s + time.perf_counter() - t
+            return PcsProof(
+                [p.roots() for p in self.phases],
+                sampled,
+                decommitments,
+                fri.FriProof(fri_roots, fri_openings, fri_prover.last_layer),
+                nonce,
+            )
         # 6. decommit — all phase trees' AND FRI layer trees' openings in
         # ONE device->host pull
         plan_keys = []
@@ -318,7 +412,11 @@ class CommitmentSchemeVerifier:
         """Replay a phase commitment: mix roots; record column structure."""
         blow = self.config.fri_config.log_blowup_factor
         commit_logs = [l + blow for l in column_trace_logs]
-        expected = sorted(set(commit_logs), reverse=True)
+        expected = (
+            [max(commit_logs)]
+            if self.config.framing == "stwo"
+            else sorted(set(commit_logs), reverse=True)
+        )
         if [l for l, _ in roots] != expected:
             raise ValueError("PCS: phase roots don't match column sizes")
         for _, r in roots:
@@ -351,7 +449,7 @@ class CommitmentSchemeVerifier:
         grouped = quotients.group_samples(samples)
         fri_verifier = fri.FriVerifier(
             channel, self.config.fri_config, list(grouped.keys()),
-            proof.fri_proof,
+            proof.fri_proof, framing=self.config.framing,
         )
         # PoW
         if not channel.verify_pow(proof.pow_nonce, self.config.pow_bits):
@@ -363,22 +461,11 @@ class CommitmentSchemeVerifier:
         queries = channel.draw_queries(self.config.fri_config.n_queries, max_log)
         # verify phase decommitments, collect opened values per (phase, col)
         opened = {}  # (phase_idx, col_idx) -> {pos: value}
-        for phase_idx, (logs, roots, decs) in enumerate(
-            zip(self.phase_column_logs, self.phase_roots, proof.decommitments)
-        ):
-            roots_d = dict(roots)
-            for cl in sorted(set(logs), reverse=True):
-                cols_here = [i for i, l in enumerate(logs) if l == cl]
-                pairs = fri.pair_positions(queries, max_log, cl)
-                dec = decs.get(cl) if isinstance(decs, dict) else None
-                if dec is None:
-                    return False
-                if not merkle.verify_decommitment(
-                    roots_d[cl], cl, len(cols_here), pairs, dec
-                ):
-                    return False
-                for j, col_idx in enumerate(cols_here):
-                    opened[(phase_idx, col_idx)] = dec.values[j]
+        check = (
+            self._open_stwo if self.config.framing == "stwo" else self._open_native
+        )
+        if not check(queries, max_log, proof.decommitments, opened):
+            return False
         # compute quotient values at pair positions per log size
         col_values = {}
         for l, batches in grouped.items():
@@ -399,3 +486,41 @@ class CommitmentSchemeVerifier:
                 }
             ]
         return fri_verifier.verify_queries(queries, col_values)
+
+    def _open_native(self, queries, max_log, decommitments, opened) -> bool:
+        """Check every per-log_size tree opening; fill ``opened``."""
+        for phase_idx, (logs, roots, decs) in enumerate(
+            zip(self.phase_column_logs, self.phase_roots, decommitments)
+        ):
+            roots_d = dict(roots)
+            for cl in sorted(set(logs), reverse=True):
+                cols_here = [i for i, l in enumerate(logs) if l == cl]
+                pairs = fri.pair_positions(queries, max_log, cl)
+                dec = decs.get(cl) if isinstance(decs, dict) else None
+                if dec is None:
+                    return False
+                if not merkle.verify_decommitment(
+                    roots_d[cl], cl, len(cols_here), pairs, dec
+                ):
+                    return False
+                for j, col_idx in enumerate(cols_here):
+                    opened[(phase_idx, col_idx)] = dec.values[j]
+        return True
+
+    def _open_stwo(self, queries, max_log, decommitments, opened) -> bool:
+        """Check every phase's mixed-degree tree opening; fill ``opened``."""
+        for phase_idx, (logs, roots, opening) in enumerate(
+            zip(self.phase_column_logs, self.phase_roots, decommitments)
+        ):
+            if not isinstance(opening, stwo_merkle.StwoPhaseOpening):
+                return False
+            qpl = {
+                cl: fri.pair_positions(queries, max_log, cl) for cl in set(logs)
+            }
+            if not stwo_merkle.verify_decommitment(
+                roots[0][1], logs, qpl, opening.queried, opening.dec
+            ):
+                return False
+            for ci, cl in enumerate(logs):
+                opened[(phase_idx, ci)] = dict(zip(qpl[cl], opening.queried[ci]))
+        return True

@@ -51,9 +51,7 @@ def verify_cairo_m(proof: Proof, config=REGULAR_96_BITS, *, device) -> bool:
     scheme = pcs.CommitmentSchemeVerifier(channel, config)
 
     # phase 0: preprocessed (recomputed expectation)
-    expected = preprocessed_phase(
-        comps, config.fri_config.log_blowup_factor, torch.device(device)
-    ).roots()
+    expected = preprocessed_phase(comps, config, torch.device(device)).roots()
     if proof.pcs_proof.phase_roots[0] != expected:
         raise VerificationError("preprocessed commitment mismatch")
     pre_cols_meta, pre_owners = comps.preprocessed_columns()

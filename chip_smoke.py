@@ -18,17 +18,39 @@ Phases (each raises on failure, so the script exits non-zero):
 5. the main path at full size: compile fibonacci, run the native VM +
    adapter for 100,000 iterations (800,010 cycles), prove twice at
    ``REGULAR_96_BITS`` (production tables) and verify; both kernels must
-   have launched during that run.
+   have launched during that run;
+6. the stwo framing: (a) fib-40 at test scale on the card and on the CPU,
+   byte-equal and matching ``tests/golden/fib40_stwo_proof_sha256.json``;
+   (b) fib-100k at ``STWO_FRAMING_96_BITS`` (production tables) proved cold
+   and warm and verified on the card; the wide-tape kernel must have
+   launched (the stwo trees are hashed on the host, so the BLAKE2s kernel
+   is expected to launch 0 times);
+7. the command line, in subprocesses: compile fibonacci; prove
+   fibonacci(10,000) with ``--max-steps 50000`` (two segments,
+   ``REGULAR_96_BITS``, production tables) with ``--verify``; ``verify``
+   the file; prove a small run under ``--framing stwo`` and ``verify`` it;
+   every exit code 0 and every segment verified;
+8. chained segments through ``prove_segments_multiprocess`` with two
+   workers on ``cuda:0``: (a) fib-40 cut at 100 steps at test scale, every
+   segment's proof digest equal to ``tests/golden/fib40_segments_sha256.json``;
+   (b) fibonacci(1,250,000) = 10,000,010 cycles cut at the production cap
+   2^20 - 1 into 10 segments at ``REGULAR_96_BITS``: the root chain holds,
+   every proof verifies, and both kernels launch in every segment.
 
-The last two lines of standard output are a JSON summary of the kernels and
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+Launch counts are read per path: zeroed just before each path is driven
+and read just after (the segment and command-line paths count inside their
+worker processes).  The last two lines of standard output are a JSON
+summary of the kernels and ``{"ok": true, "device": {...}}``.  Imports
+nothing of JAX.
 """
 
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -48,6 +70,7 @@ from cairo_m_tpu_torch.prover.relations import Relations  # noqa: E402
 from cairo_m_tpu_torch.prover.stark import framework, wtape  # noqa: E402
 from cairo_m_tpu_torch.prover.stark.air import logup_shift_scalar  # noqa: E402
 from cairo_m_tpu_torch.prover.verify import verify_cairo_m  # noqa: E402
+from cairo_m_tpu_torch.parallel.segments import prove_segments_multiprocess  # noqa: E402
 
 FIB_SRC = """
 fn main(n: felt) -> felt {
@@ -63,8 +86,12 @@ fn main(n: felt) -> felt {
     return a;
 }
 """
-GOLDEN = os.path.join(REPO, "tests", "golden", "fib40_proof_sha256.json")
+GOLDEN_DIR = os.path.join(REPO, "tests", "golden")
 DEV = torch.device("cuda:0")
+TEST_SCALE = {"rc_big_bits": 10, "bitwise_log": 8}
+TEST_CONFIG = {"n_queries": 8, "pow_bits": 2}
+CHAIN_ITERS = 1_250_000  # fibonacci(1,250,000) = 10,000,010 cycles
+SEGMENT_CAP = (1 << 20) - 1
 
 
 def log(msg):
@@ -204,28 +231,165 @@ def phase_wtape(pi, rng):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": shape}
 
 
-def phase_test_scale(program):
+def _golden(name):
+    with open(os.path.join(GOLDEN_DIR, name)) as f:
+        return json.load(f)["sha256"]
+
+
+def phase_test_scale(program, framing, golden):
     """fib-40 at test scale: CUDA proof == CPU proof == reference digest."""
-    with open(GOLDEN) as f:
-        golden = json.load(f)
-    config.set_test_scale(10, 8)
+    config.set_test_scale(**TEST_SCALE)
     try:
-        cfg = config.test_config(n_queries=8, pow_bits=2)
+        cfg = config.test_config(**TEST_CONFIG, framing=framing)
         pi = native_prover_input(program, "main", [40])
         js = {}
         for dev in ("cuda", "cpu"):
             t = time.time()
             proof = prove_cairo_m(pi, cfg, device=dev)
             js[dev] = json.dumps(proof.to_json_obj(), sort_keys=True)
-            log(f"  fib-40 test scale on {dev}: {time.time() - t:.2f} s")
+            log(f"  fib-40 {framing} test scale on {dev}: {time.time() - t:.2f} s")
         if js["cuda"] != js["cpu"]:
-            raise AssertionError("fib-40 proof differs between CUDA and CPU")
+            raise AssertionError(f"fib-40 {framing} proof differs between CUDA and CPU")
         digest = hashlib.sha256(js["cuda"].encode()).hexdigest()
-        log(f"  fib-40 proof sha256 {digest} (reference {golden['sha256']})")
-        if digest != golden["sha256"]:
-            raise AssertionError("fib-40 proof does not match the reference digest")
+        log(f"  fib-40 {framing} proof sha256 {digest} (reference {_golden(golden)})")
+        if digest != _golden(golden):
+            raise AssertionError(f"fib-40 {framing} proof does not match the reference digest")
     finally:
         config.set_production_scale()
+
+
+def prove_full(pi, cfg, label):
+    """Prove cold and warm on the card and verify; -> (launches, stats)."""
+    kernels.reset_launches()
+    runs = []
+    for run in ("cold", "warm"):
+        timing = {}
+        torch.cuda.synchronize()
+        t = time.time()
+        proof = prove_cairo_m(pi, cfg, timing, device=DEV)
+        torch.cuda.synchronize()
+        runs.append(time.time() - t)
+        log(f"  {label} {run} prove: {runs[-1]:.3f} s, phases "
+            + json.dumps({k: round(v, 4) for k, v in timing.items()}))
+    t = time.time()
+    ok = verify_cairo_m(proof, cfg, device=DEV)
+    verify_s = time.time() - t
+    launches = dict(kernels.launches)
+    if not ok:
+        raise AssertionError(f"{label} proof did not verify")
+    n = pi.total_steps
+    log(f"  {label}: verified in {verify_s:.3f} s; {n} cycles; warm "
+        f"{n / runs[1]:.1f} cycles/s, cold {n / runs[0]:.1f} cycles/s")
+    log(f"  {label} launches: {launches}")
+    return launches, {"cold_s": runs[0], "warm_s": runs[1], "verify_s": verify_s}
+
+
+def _cli(*argv, timeout=900):
+    """Run the port's command line; raise unless it exits with 0."""
+    t = time.time()
+    res = subprocess.run(
+        [sys.executable, "-m", "cairo_m_tpu_torch.cli", *argv],
+        capture_output=True, text=True, cwd=REPO, timeout=timeout,
+    )
+    log(f"  cli {argv[0]} ({time.time() - t:.2f} s, rc {res.returncode}):")
+    for line in (res.stdout + res.stderr).strip().splitlines():
+        log(f"    {line}")
+    if res.returncode != 0:
+        raise AssertionError(f"cli {' '.join(argv)} exited with {res.returncode}")
+    return res
+
+
+def _cli_launches(res):
+    """Kernel launches the prove command reports for its segments."""
+    total = dict.fromkeys(kernels.launches, 0)
+    for m in re.finditer(r"kernel launches (\{.*\})", res.stderr):
+        for k, n in json.loads(m.group(1)).items():
+            total[k] += n
+    return total
+
+
+def phase_cli(tmp):
+    """prove / verify through the command line, in subprocesses."""
+    src, prog = os.path.join(tmp, "fib.cm"), os.path.join(tmp, "fib.json")
+    with open(src, "w") as f:
+        f.write(FIB_SRC)
+    _cli("compile", src, "-o", prog)
+    launches = {}
+    # the stwo proof is checked by `verify` alone: its host-side
+    # verification costs tens of seconds on the card's machine
+    for framing, arg, n_segments, check in (
+        ("native", "10000", 2, ["--verify"]), ("stwo", "100", 1, []),
+    ):
+        out = os.path.join(tmp, f"{framing}.json")
+        res = _cli("prove", prog, "--arguments", arg, "--max-steps", "50000",
+                   "--framing", framing, "--device", "cuda", *check, "-o", out)
+        launches[framing] = _cli_launches(res)
+        verified = [f"segment {i}: verified=True" for i in range(n_segments)]
+        if check and [l for l in res.stdout.splitlines() if "verified=" in l] != verified:
+            raise AssertionError(f"cli prove {framing}: not every segment verified")
+        res = _cli("verify", out, "--device", "cuda")
+        ok = [f"segment {i}: OK" for i in range(n_segments)] + ["proof verified"]
+        if res.stdout.strip().splitlines() != ok:
+            raise AssertionError(f"cli verify {framing}: {res.stdout!r}")
+    log(f"  cli prove launches: {launches}")
+    if min(launches["native"].values()) <= 0 or launches["stwo"]["wtape_run_plan"] <= 0:
+        raise AssertionError("a kernel never launched in the cli's proofs")
+    return {k: launches["native"][k] + launches["stwo"][k] for k in launches["native"]}
+
+
+def _digest(obj):
+    return hashlib.sha256(json.dumps(obj, sort_keys=True).encode()).hexdigest()
+
+
+def phase_segments_test_scale():
+    """fib-40 cut at 100 steps, two workers on the card: reference digests."""
+    t = time.time()
+    records = prove_segments_multiprocess(
+        FIB_SRC, "main", [40], 100, devices=[str(DEV)], n_processes=2,
+        test_scale=TEST_SCALE, test_config=TEST_CONFIG, timeout=600,
+    )
+    got = [_digest(r["proof"]) for r in records]
+    log(f"  fib-40 in {len(records)} segments, {time.time() - t:.2f} s: "
+        f"digests {'equal to' if got == _golden('fib40_segments_sha256.json') else 'DIFFERENT from'} the reference's")
+    if got != _golden("fib40_segments_sha256.json"):
+        raise AssertionError("segment proofs do not match the reference digests")
+    return records
+
+
+def phase_segments_full():
+    """fibonacci(1,250,000) in 10 segments at REGULAR_96_BITS, two workers
+    on the card; rates as scripts/bench_segments.py defines them."""
+    t = time.time()
+    records = prove_segments_multiprocess(
+        FIB_SRC, "main", [CHAIN_ITERS], SEGMENT_CAP, devices=[str(DEV)],
+        n_processes=2, timeout=900,
+    )
+    wall = time.time() - t
+    for r in records:
+        log(f"  segment {r['segment']} (worker {r['worker']}): {r['n_steps']} "
+            f"cycles, prove {r['prove_s']:.3f} s, verify {r['verify_s']:.3f} s, "
+            f"launches {r['launches']}")
+        for name, count in r["launches"].items():
+            if count <= 0:
+                raise AssertionError(f"kernel {name} never launched in segment {r['segment']}")
+    total = sum(r["n_steps"] for r in records)
+    prove_s = sum(r["prove_s"] for r in records)
+    # warm: every segment but each worker's first (that one pays the
+    # worker's cold start), as bench_segments.py drops the first segment
+    firsts = {min(r["segment"] for r in records if r["worker"] == w)
+              for w in {r["worker"] for r in records}}
+    warm = [r for r in records if r["segment"] not in firsts]
+    warm_cps = sum(r["n_steps"] for r in warm) / sum(r["prove_s"] for r in warm)
+    log(f"  chain: {len(records)} segments, {total} cycles, root chain ok, all "
+        f"verified; {total / prove_s:.1f} cycles/s over prove seconds "
+        f"({prove_s:.3f} s), warm {warm_cps:.1f} cycles/s over "
+        f"{len(warm)} segments; wall {wall:.2f} s ({total / wall:.1f} cycles/s "
+        f"end to end, VM, proving and verifying in 2 workers)")
+    launches = dict.fromkeys(kernels.launches, 0)
+    for r in records:
+        for k, n in r["launches"].items():
+            launches[k] += n
+    return launches
 
 
 def main():
@@ -253,51 +417,46 @@ def main():
     res_b = phase_wtape(pi_big, rng)
 
     log("phase 4: test-scale proof, CUDA vs CPU vs reference digest")
-    phase_test_scale(program)
+    phase_test_scale(program, "native", "fib40_proof_sha256.json")
 
     log("phase 5: fib-100k at REGULAR_96_BITS, production scale")
-    cfg = config.REGULAR_96_BITS
-    kernels.reset_launches()
     t = time.time()
     pi = native_prover_input(program, "main", [100_000])
-    adapter_s = time.time() - t
-    runs = []
-    for label in ("cold", "warm"):
-        timing = {}
-        torch.cuda.synchronize()
-        t = time.time()
-        proof = prove_cairo_m(pi, cfg, timing, device=DEV)
-        torch.cuda.synchronize()
-        runs.append(time.time() - t)
-        log(f"  {label} prove: {runs[-1]:.3f} s, phases "
-            + json.dumps({k: round(v, 4) for k, v in timing.items()}))
-    t = time.time()
-    ok = verify_cairo_m(proof, cfg, device=DEV)
-    verify_s = time.time() - t
-    launches = dict(kernels.launches)
-    if not ok:
-        raise AssertionError("fib-100k proof did not verify")
-    n_cycles = pi.total_steps
-    log(f"  verified in {verify_s:.3f} s; adapter {adapter_s:.3f} s; "
-        f"{n_cycles} cycles; warm {n_cycles / runs[1]:.1f} cycles/s, "
-        f"cold {n_cycles / runs[0]:.1f} cycles/s")
+    log(f"  native VM + adapter {time.time() - t:.3f} s")
+    paths = {}
+    paths["main"], _ = prove_full(pi, config.REGULAR_96_BITS, "fib-100k")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"  main-path launches: {launches}")
-    for name, count in launches.items():
+    for name, count in paths["main"].items():
         if count <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
+
+    log("phase 6: stwo framing")
+    phase_test_scale(program, "stwo", "fib40_stwo_proof_sha256.json")
+    paths["stwo"], _ = prove_full(pi, config.STWO_FRAMING_96_BITS, "fib-100k stwo")
+    if paths["stwo"]["wtape_run_plan"] <= 0:
+        raise AssertionError("kernel wtape_run_plan never launched on the stwo path")
+
+    log("phase 7: command line")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["cli"] = phase_cli(tmp)
+
+    log("phase 8: chained segments, two workers on the card")
+    phase_segments_test_scale()
+    paths["segments"] = phase_segments_full()
 
     summary = {"kernels": [
         {"name": "blake2s_leaves", "route": "cuda",
          "source": "cairo_m_tpu_torch/csrc/blake2s_leaves.cu",
          "replaces": "cairo_m_tpu/hash/blake2s_pallas.py:83",
-         "launches": launches["blake2s_leaves"],
+         "launches": paths["main"]["blake2s_leaves"],
+         "launches_by_path": {p: c["blake2s_leaves"] for p, c in paths.items()},
          "max_abs_err": res_a["max_abs_err"], "ms": res_a["ms"],
          "plain_ms": res_a["plain_ms"]},
         {"name": "wtape_run_plan", "route": "cuda",
          "source": "cairo_m_tpu_torch/csrc/wtape.cu",
          "replaces": "cairo_m_tpu/prover/stark/wtape_pallas.py:69",
-         "launches": launches["wtape_run_plan"],
+         "launches": paths["main"]["wtape_run_plan"],
+         "launches_by_path": {p: c["wtape_run_plan"] for p, c in paths.items()},
          "max_abs_err": res_b["max_abs_err"], "ms": res_b["ms"],
          "plain_ms": res_b["plain_ms"]},
     ]}

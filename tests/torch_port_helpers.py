@@ -61,14 +61,14 @@ def both_at_test_scale():
             cfg.SCALE.bitwise_log = bitwise_log
 
 
-def configs():
+def configs(framing="native"):
     """(reference, port) test configs: 8 queries, 2 PoW bits."""
     from cairo_m_tpu.prover import config as rcfg
     from cairo_m_tpu_torch.prover import config as tcfg
 
     return (
-        rcfg.test_config(n_queries=8, pow_bits=2),
-        tcfg.test_config(n_queries=8, pow_bits=2),
+        rcfg.test_config(n_queries=8, pow_bits=2, framing=framing),
+        tcfg.test_config(n_queries=8, pow_bits=2, framing=framing),
     )
 
 
@@ -105,13 +105,39 @@ def proof_sha256(proof) -> str:
     return hashlib.sha256(proof_json(proof).encode()).hexdigest()
 
 
-def reference_fib40_proof():
+def reference_fib40_proof(framing="native"):
     """The reference's fib-40 proof at test scale, test_config(8, 2): the
-    proof whose digest tests/golden/fib40_proof_sha256.json records."""
+    proof whose digest tests/golden/fib40_proof_sha256.json (native) or
+    tests/golden/fib40_stwo_proof_sha256.json (stwo) records."""
     from cairo_m_tpu.prover.prove import prove_cairo_m
 
     with both_at_test_scale():
-        return prove_cairo_m(reference_fib_input(40), configs()[0])
+        return prove_cairo_m(reference_fib_input(40), configs(framing)[0])
+
+
+# fib-40 (330 cycles) cut into continuation segments of at most 100 steps
+SEGMENT_MAX_STEPS = 100
+
+
+def reference_fib40_segment_digests():
+    """Digests of the reference's per-segment proofs of fib-40 cut at
+    SEGMENT_MAX_STEPS (native VM continuation), at test scale with
+    test_config(8, 2): what tests/golden/fib40_segments_sha256.json
+    records."""
+    from cairo_m_tpu.compiler import compile_cairo
+    from cairo_m_tpu.prover.adapter.native_import import (
+        native_segment_prover_inputs,
+    )
+    from cairo_m_tpu.prover.prove import prove_cairo_m
+
+    program = compile_cairo(FIB_SRC).program
+    with both_at_test_scale():
+        return [
+            proof_sha256(prove_cairo_m(pi, configs()[0]))
+            for pi in native_segment_prover_inputs(
+                program, "main", [40], SEGMENT_MAX_STEPS
+            )
+        ]
 
 
 def cross_verify(rproof, tproof):
