@@ -1,20 +1,21 @@
-"""Command line of the PyTorch prover: prove and verify on a named device.
+"""Command line of the PyTorch prover: compile / run / prove / verify.
 
   python -m cairo_m_tpu_torch.cli compile program.cm -o program.json
+  python -m cairo_m_tpu_torch.cli run program.json --entrypoint main --arguments 5
   python -m cairo_m_tpu_torch.cli prove program.json --entrypoint main \
-      --arguments 5 --output proof.json --device cuda [--verify] \
+      --arguments 5 --output proof.json [--device cuda] [--verify] \
       [--framing {native,stwo}] [--max-steps N] [--from-trace trace.bin]
-  python -m cairo_m_tpu_torch.cli verify proof.json --device cuda
+  python -m cairo_m_tpu_torch.cli verify proof.json [--device cuda]
+  python -m cairo_m_tpu_torch.cli {fmt,init,wasm,build} ...
 
-Counterpart of ``cairo_m_tpu.cli``.  ``prove`` and ``verify`` take the
-reference's flags plus a required ``--device`` (there is no default, and
-``cuda`` without a card is an error) and run this package's prover.  A run
+Counterpart of ``cairo_m_tpu.cli``, with the same commands and flags, served
+by this package's own compiler, VM and prover.  ``prove`` and ``verify`` also
+take ``--device``: it defaults to ``cuda``, and ``cuda`` without a card is an
+error, never a quiet move to the CPU (``--device cpu`` asks for that).  A run
 longer than ``--max-steps`` is cut into continuation segments, one proof
 each; the proof file is the reference's ``{"segments": [...], "framing":
 ...}``, and ``verify`` checks every segment and the Poseidon2 root chain
-``initial_root(k) == final_root(k-1)``.  ``compile``, ``run``, ``fmt``,
-``init``, ``wasm`` and ``build`` are the reference's own commands, which
-never import JAX.
+``initial_root(k) == final_root(k-1)``.
 """
 
 from __future__ import annotations
@@ -24,13 +25,134 @@ import json
 import os
 import sys
 
-import torch
-
-from cairo_m_tpu import cli as reference_cli
-
+from .device import DEFAULT_DEVICE, resolve_device
 from .prover.config import REGULAR_96_BITS, STWO_FRAMING_96_BITS
 
-_REFERENCE_COMMANDS = ("compile", "run", "fmt", "init", "wasm", "build")
+
+def _load_program(path):
+    from .isa.program import Program
+
+    with open(path) as f:
+        return Program.from_json(f.read())
+
+
+def _parse_args_list(raw):
+    from .isa.abi_codec import parse_arg
+
+    return [parse_arg(a) for a in raw]
+
+
+def _write_program(program, dest):
+    with open(dest, "w") as f:
+        f.write(program.to_json())
+
+
+def cmd_compile(args):
+    from .compiler import CompilationError, CompilerOptions, compile_cairo
+
+    with open(args.input) as f:
+        src = f.read()
+    try:
+        out = compile_cairo(
+            src,
+            name=args.input,
+            options=CompilerOptions(optimization_level=args.opt),
+        )
+    except CompilationError as e:
+        for d in e.diagnostics:
+            print(f"{d.file_path}:{d.line}: {d.severity}: {d.message}", file=sys.stderr)
+        return 1
+    dest = args.output or args.input.rsplit(".", 1)[0] + ".json"
+    _write_program(out.program, dest)
+    print(f"compiled {args.input} -> {dest}")
+    return 0
+
+
+def cmd_run(args):
+    from .vm import trace_io
+    from .vm.runner import RunnerOptions, run_cairo_program
+
+    program = _load_program(args.program)
+    res = run_cairo_program(
+        program,
+        args.entrypoint,
+        _parse_args_list(args.arguments),
+        RunnerOptions(max_steps=args.max_steps),
+    )
+    for v in res.return_values:
+        print(v.flatten())
+    if args.trace_output:
+        base, ext = os.path.splitext(args.trace_output)
+        segs = res.vm.segments
+        trace_io.write_binary_trace(segs, args.trace_output)
+        trace_io.write_binary_memory_trace(
+            segs, res.vm.program_length, f"{base}_mem{ext}"
+        )
+        trace_io.write_initial_memory(segs, f"{base}_initmem{ext}")
+    return 0
+
+
+def cmd_fmt(args):
+    from .compiler.formatter import format_source
+
+    changed = 0
+    for path in args.files:
+        with open(path) as f:
+            src = f.read()
+        out = format_source(src)
+        if out != src:
+            changed += 1
+            if args.check:
+                print(f"would reformat {path}")
+            else:
+                with open(path, "w") as f:
+                    f.write(out)
+                print(f"reformatted {path}")
+    return 1 if args.check and changed else 0
+
+
+def cmd_init(args):
+    from .compiler.project import init_project
+
+    name = args.name or os.path.basename(os.path.abspath(args.path))
+    proj = init_project(args.path, name)
+    print(f"created project {proj.manifest.name} at {proj.root}")
+    return 0
+
+
+def cmd_wasm(args):
+    from .wasm import WasmError, compile_wasm
+
+    with open(args.input, "rb") as f:
+        data = f.read()
+    try:
+        out = compile_wasm(data)
+    except WasmError as e:
+        print(f"wasm: {e}", file=sys.stderr)
+        return 1
+    dest = args.output or args.input.rsplit(".", 1)[0] + ".json"
+    _write_program(out.program, dest)
+    eps = ", ".join(out.program.entrypoints)
+    print(f"compiled {args.input} -> {dest} (entrypoints: {eps})")
+    return 0
+
+
+def cmd_build(args):
+    from .compiler import CompilationError, CompilerOptions
+    from .compiler.project import compile_project, discover_project
+
+    try:
+        out = compile_project(
+            args.path, options=CompilerOptions(optimization_level=args.opt)
+        )
+    except CompilationError as e:
+        print(e.render(), file=sys.stderr)
+        return 1
+    proj = discover_project(args.path)
+    dest = args.output or f"{proj.manifest.name}.json"
+    _write_program(out.program, dest)
+    print(f"built {proj.manifest.name} -> {dest}")
+    return 0
 
 
 def config_for(framing: str):
@@ -38,19 +160,19 @@ def config_for(framing: str):
     return STWO_FRAMING_96_BITS if framing == "stwo" else REGULAR_96_BITS
 
 
-def _device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {name}: no CUDA device is available")
-    return device
+def _device(name: str):
+    try:
+        return resolve_device(name)
+    except RuntimeError as e:
+        raise SystemExit(f"--device {name}: {e}")
 
 
 def _segments_from_trace(program, entrypoint, trace_path):
     """(segments, public address ranges) from the binary trace files that
     ``run --trace-output`` writes; the ranges are recomputed from the
     program ABI as the runner does."""
-    from cairo_m_tpu.isa.program import PublicAddressRanges
-    from cairo_m_tpu.vm import trace_io
+    from .isa.program import PublicAddressRanges
+    from .vm import trace_io
 
     base, ext = os.path.splitext(trace_path)
     segments = trace_io.segments_from_files(
@@ -63,16 +185,15 @@ def _segments_from_trace(program, entrypoint, trace_path):
 
 
 def cmd_prove(args):
-    from cairo_m_tpu.vm.runner import RunnerOptions, run_cairo_program
-
     from . import kernels
     from .prover.adapter.adapter import import_from_runner_output
     from .prover.prove import prove_cairo_m
     from .prover.verify import verify_cairo_m
+    from .vm.runner import RunnerOptions, run_cairo_program
 
     device = _device(args.device)
     cfg = config_for(args.framing)
-    program = reference_cli._load_program(args.program)
+    program = _load_program(args.program)
     return_values = []
     if args.from_trace:
         segments, ranges = _segments_from_trace(
@@ -82,7 +203,7 @@ def cmd_prove(args):
         res = run_cairo_program(
             program,
             args.entrypoint,
-            reference_cli._parse_args_list(args.arguments),
+            _parse_args_list(args.arguments),
             RunnerOptions(max_steps=args.max_steps),
         )
         segments, ranges = res.vm.segments, res.public_address_ranges
@@ -148,11 +269,22 @@ def cmd_verify(args):
 
 
 def main(argv=None):
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in _REFERENCE_COMMANDS:
-        return reference_cli.main(argv)
     ap = argparse.ArgumentParser(prog="cairo-m-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    c = sub.add_parser("compile")
+    c.add_argument("input")
+    c.add_argument("-o", "--output")
+    c.add_argument("--opt", default="standard", choices=["none", "standard"])
+    c.set_defaults(fn=cmd_compile)
+
+    r = sub.add_parser("run")
+    r.add_argument("program")
+    r.add_argument("--entrypoint", default="main")
+    r.add_argument("--arguments", nargs="*", default=[])
+    r.add_argument("--max-steps", type=int, default=(1 << 20) - 1)
+    r.add_argument("--trace-output")
+    r.set_defaults(fn=cmd_run)
 
     p = sub.add_parser("prove")
     p.add_argument("program")
@@ -171,19 +303,39 @@ def main(argv=None):
         help="prove from binary trace files written by `run --trace-output` "
         "instead of re-running the VM",
     )
-    p.add_argument("--device", required=True,
-                   help="torch device to prove on, e.g. cuda, cuda:1 or cpu")
+    p.add_argument("--device", default=DEFAULT_DEVICE,
+                   help="torch device to prove on, e.g. cuda, cuda:1 or cpu "
+                   "(default: cuda)")
     p.set_defaults(fn=cmd_prove)
 
     v = sub.add_parser("verify")
     v.add_argument("proof")
-    v.add_argument("--device", required=True,
+    v.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device that recomputes the preprocessed "
-                   "commitment")
+                   "commitment (default: cuda)")
     v.set_defaults(fn=cmd_verify)
 
-    for name in _REFERENCE_COMMANDS:  # dispatched above; listed for --help
-        sub.add_parser(name, help=f"the reference's `{name}` command")
+    f = sub.add_parser("fmt", help="format .cm sources in place")
+    f.add_argument("files", nargs="+")
+    f.add_argument("--check", action="store_true",
+                   help="exit 1 if any file would change")
+    f.set_defaults(fn=cmd_fmt)
+
+    i = sub.add_parser("init", help="scaffold a new cairom.toml project")
+    i.add_argument("path")
+    i.add_argument("--name")
+    i.set_defaults(fn=cmd_init)
+
+    w = sub.add_parser("wasm", help="compile a WebAssembly module (i32 subset)")
+    w.add_argument("input")
+    w.add_argument("--output", "-o")
+    w.set_defaults(fn=cmd_wasm)
+
+    b = sub.add_parser("build", help="compile a cairom.toml project")
+    b.add_argument("path", nargs="?", default=".")
+    b.add_argument("--output", "-o")
+    b.add_argument("--opt", default="standard", choices=["none", "standard"])
+    b.set_defaults(fn=cmd_build)
 
     args = ap.parse_args(argv)
     return args.fn(args)

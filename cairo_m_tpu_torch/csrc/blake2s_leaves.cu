@@ -8,11 +8,12 @@
 // to out[0..7][j].
 //
 // What bounds it on an H100: integer issue and memory traffic about
-// equally.  One compression is ~1,100 32-bit integer operations; at K = 16 a
-// lane moves 24 int64 words (192 bytes), ~6 operations per byte, close to
-// the card's INT32-rate-to-bandwidth balance.  (K = 16, n = 2^20 takes
-// 0.081 ms on an H100 80GB HBM3 at 700 W: ~87% of the INT32 issue rate and
-// ~74% of HBM bandwidth.)  A 32-bit carrier would halve the bytes and leave
+// equally.  One compression is ~980 32-bit integer machine operations (80 G
+// functions of 12: three-input adds, xors, one funnel shift a rotation); at
+// K = 16 a lane moves 24 int64 words (192 bytes), ~5 operations per byte, the
+// card's INT32-rate-to-bandwidth balance.  (K = 16, n = 2^20 takes 0.081 ms
+// on an H100 80GB HBM3 at 700 W: ~76% of the INT32 issue rate and ~74% of
+// HBM bandwidth.)  A 32-bit carrier would halve the bytes and leave
 // it compute-bound.  The design keeps the 16-word state and
 // the message block in registers (the SIGMA schedule is unrolled with
 // literal indices so no local-memory array is ever indexed at run time),

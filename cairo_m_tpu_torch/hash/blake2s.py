@@ -153,7 +153,7 @@ def hash_leaves(stacked: torch.Tensor, n_words: int = None) -> torch.Tensor:
             stacked.data_ptr(), out.data_ptr(), n, k, n_words, stream
         )
     kernels.check(err, "blake2s_leaves")
-    kernels.launches["blake2s_leaves"] += 1
+    kernels.count("blake2s_leaves", (k, n_words, n))
     return out
 
 

@@ -1,6 +1,6 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Both kernels live in ``csrc/*.cu`` with a plain C interface.  On first use
+The kernels live in ``csrc/*.cu`` with a plain C interface.  On first use
 each source is compiled by its own ``nvcc`` for ``sm_90a`` (all started
 together) and the objects are linked into one shared library under
 ``_build/`` (named by a hash of the sources, so an edited source never loads
@@ -8,9 +8,10 @@ a stale library), bound with ``ctypes``.  Nothing here runs at import
 time: the CPU-only test environment imports every module and has no
 ``nvcc``.
 
-``launches`` counts kernel launches by name.  A wrapper adds one where it
-launches its kernel and nowhere else, so a caller can zero the counts,
-drive the prover, and see which kernels the run went through.
+``launches`` counts kernel launches by name (and ``launch_shapes`` by name
+and shape).  A wrapper calls `count` where it launches its kernel and
+nowhere else, so a caller can zero the counts, drive the prover, and see
+which kernels the run went through.
 """
 
 from __future__ import annotations
@@ -28,7 +29,9 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-launches = {"blake2s_leaves": 0, "wtape_run_plan": 0}
+launches = {"blake2s_leaves": 0, "wtape_run_plan": 0, "wtape_run_plan_global": 0}
+# launches by (kernel name, *shape): which shapes a run sent to each kernel
+launch_shapes: dict = {}
 
 _lock = threading.Lock()
 _lib = None
@@ -37,6 +40,15 @@ _lib = None
 def reset_launches():
     for k in launches:
         launches[k] = 0
+    launch_shapes.clear()
+
+
+def count(name: str, shape: tuple):
+    """One launch of kernel ``name`` at ``shape``; a wrapper calls this where
+    it launches its kernel and nowhere else."""
+    launches[name] += 1
+    key = (name, *shape)
+    launch_shapes[key] = launch_shapes.get(key, 0) + 1
 
 
 def _sources():
@@ -110,9 +122,13 @@ def lib():
             handle.cm_blake2s_leaves.argtypes = [vp, vp, i64, i32, i32, vp]
             handle.cm_blake2s_leaves.restype = ctypes.c_int
             handle.cm_wtape_run.argtypes = [
-                vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i64, i64, i64, vp,
+                vp, vp, vp, vp, vp, i32, i32, i32, i64, i32, vp,
             ]
             handle.cm_wtape_run.restype = ctypes.c_int
+            handle.cm_wtape_run_global.argtypes = [
+                vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i64, i64, i64, vp,
+            ]
+            handle.cm_wtape_run_global.restype = ctypes.c_int
             _lib = handle
         return _lib
 

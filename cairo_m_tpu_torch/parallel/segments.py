@@ -44,19 +44,15 @@ def _worker_main(argv):
     ap.add_argument("--device", required=True)
     args = ap.parse_args(argv)
 
-    import torch
-
-    from cairo_m_tpu.compiler import compile_cairo
-
     from .. import kernels
+    from ..compiler import compile_cairo
+    from ..device import resolve_device
     from ..prover.adapter.native_import import native_segment_prover_inputs
     from ..prover.config import REGULAR_96_BITS, set_test_scale, test_config
     from ..prover.prove import prove_cairo_m
     from ..prover.verify import verify_cairo_m
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"segment worker: no CUDA device for {device}")
+    device = resolve_device(args.device)
     with open(os.path.join(args.workdir, "job.json")) as f:
         spec = json.load(f)
     if spec.get("test_scale"):
@@ -123,7 +119,7 @@ def prove_segments_multiprocess(
     entrypoint: str,
     args: list,
     max_steps: int,
-    devices: list,
+    devices=("cuda:0",),
     n_processes: int = 2,
     test_scale: dict = None,
     test_config: dict = None,
@@ -132,7 +128,8 @@ def prove_segments_multiprocess(
     """Launch N worker processes, worker ``i`` on
     ``devices[i % len(devices)]``; round-robin the continuation segments
     across them, collect the proofs, check the Poseidon2 root chain, and
-    return the ordered per-segment records."""
+    return the ordered per-segment records.  The default is the first card;
+    a worker whose device is a card that does not exist raises."""
     if not devices:
         raise ValueError("prove_segments_multiprocess needs at least one device")
     with tempfile.TemporaryDirectory(prefix="cm_segments_") as workdir:

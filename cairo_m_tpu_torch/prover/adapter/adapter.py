@@ -24,7 +24,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from cairo_m_tpu.isa.instruction import SPECS_BY_OPCODE
+from ...isa.instruction import SPECS_BY_OPCODE
+from ...isa.program import PublicAddressRanges
 
 P = (1 << 31) - 1
 LOG_SIZE_RC_20 = 20
@@ -224,8 +225,10 @@ def import_from_runner_output(segment, public_address_ranges) -> ProverInput:
 
 def from_reference_prover_input(pi) -> ProverInput:
     """The JAX package's ``ProverInput`` (NumPy fields, same layout) as this
-    package's, so both packages can prove the very same input."""
+    package's, so both packages can prove the very same input.  Values cross
+    as plain data: no object of the other package is kept."""
     mt = pi.merkle_trees
+    r = pi.public_address_ranges
     return ProverInput(
         initial_memory=dict(pi.initial_memory),
         final_memory=dict(pi.final_memory),
@@ -244,6 +247,8 @@ def from_reference_prover_input(pi) -> ProverInput:
             mt.final_root,
         ),
         poseidon2_inputs=pi.poseidon2_inputs,
-        public_address_ranges=pi.public_address_ranges,
-        total_steps=pi.total_steps,
+        public_address_ranges=PublicAddressRanges(
+            *(range(x.start, x.stop) for x in (r.program, r.input, r.output))
+        ),
+        total_steps=int(pi.total_steps),
     )

@@ -18,9 +18,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from cairo_m_tpu import native
-from cairo_m_tpu.isa.instruction import SPECS_BY_OPCODE
-from cairo_m_tpu.isa.program import PublicAddressRanges
+from ... import native
+from ...isa.instruction import SPECS_BY_OPCODE
+from ...isa.program import PublicAddressRanges
 from .adapter import MerkleTreesData, OpcodeBundles, ProverInput
 
 P = (1 << 31) - 1

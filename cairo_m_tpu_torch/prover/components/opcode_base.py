@@ -30,7 +30,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from cairo_m_tpu.isa.instruction import SPECS_BY_OPCODE
+from ...isa.instruction import SPECS_BY_OPCODE
 from ..stark.air import Component
 from .generic import _pad_len, enabler_col
 

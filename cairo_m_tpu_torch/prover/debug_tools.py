@@ -17,7 +17,7 @@ from collections import defaultdict
 
 import numpy as np
 
-from cairo_m_tpu.prover.stark.channel import Blake2sChannel
+from .stark.channel import Blake2sChannel
 
 from ..hash.poseidon2 import TREE_HEIGHT
 from .components.registry import ComponentSet

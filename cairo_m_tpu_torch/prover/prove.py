@@ -25,6 +25,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
 from .components.registry import ComponentSet
 from .config import REGULAR_96_BITS, SCALE
 from .public_data import PublicData
@@ -136,9 +137,11 @@ def build_sample_points(comps: ComponentSet, z, z_prevs, pre_owners):
     return [pre_points, trace_points, inter_points, comp_points]
 
 
-def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *, device):
-    """Prove ``prover_input`` on ``device`` (a torch device or its name)."""
-    device = torch.device(device)
+def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
+                  device=DEFAULT_DEVICE):
+    """Prove ``prover_input`` on ``device`` (a torch device or its name; the
+    card unless the caller names another, and an error without one)."""
+    device = resolve_device(device)
     t0 = time.time()
     channel = config.make_channel()
     config.mix_into(channel)

@@ -34,8 +34,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from cairo_m_tpu.prover.stark.channel import Blake2sChannel
-from cairo_m_tpu.prover.stark.stwo_channel import StwoBlake2sChannel
+from .channel import Blake2sChannel
+from .stwo_channel import StwoBlake2sChannel
 
 from . import domain, fft, fri, merkle, quotients, stwo_merkle
 

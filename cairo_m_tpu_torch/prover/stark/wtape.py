@@ -11,12 +11,15 @@ shift, composition weights) are runtime constants, so plans are cached.
 The recorder, scheduler and plan are the reference's host code, unchanged,
 so the plans are identical in both packages.  Execution differs:
 `run_wide` prepares the bank rows with plain indexed gathers, and
-`run_plan` is the wrapper of the CUDA kernel ``csrc/wtape.cu``, which
-replaces both the Pallas kernel ``wtape_pallas._kernel`` and the
+`run_plan` is the wrapper of the CUDA kernels of ``csrc/wtape.cu``, which
+replace both the Pallas kernel ``wtape_pallas._kernel`` and the
 ``lax.scan`` interpreter ``wtape._wide_kernel``: on the card every plan
-goes through it, whatever its step count or domain size.  On the card the
-kernel is bounded by register-file traffic (up to three 4-byte accesses per
-instruction and lane); the design note is in the CUDA source.
+goes through them, whatever its step count or domain size.  The plan's
+schedule was made for a vector unit 32 slots wide; for one CUDA thread per
+lane `kernel_program` drops the NOP slots, re-orders the instructions depth
+first and re-allocates the registers, so that the register file fits in
+shared memory (the design note is in the CUDA source).  `run_plan_plain`
+is the plain torch version: the CPU route and the yardstick of the tests.
 """
 
 from __future__ import annotations
@@ -403,21 +406,46 @@ def schedule_wide(rec: WideRecorder, outputs, width: int = 32) -> WidePlan:
 # Interpreter
 # ---------------------------------------------------------------------------
 
+# The shared-memory kernel: a block may use 232,448 bytes of dynamic shared
+# memory of the SM's 233,472, and every resident block reserves 1,024 more.
+_SMEM_BLOCK_BYTES = 232448
+_SMEM_SM_BYTES = 233472
+_SMEM_RESERVED = 1024
+_SM_COUNT = 132
+_BLOCKS_PER_SM = 32
+_CHUNK = 32  # instructions the kernel fetches at a time (csrc/wtape.cu)
+_BUNDLE = 4  # independent instructions the kernel runs together
+_LANE_CHOICES = (64, 32)  # lanes per block (one warp, 2 or 1 lanes a thread)
 # device budget for one launch's register-file scratch (R * tile * 4 bytes)
+# of the global-scratch kernel
 _SCRATCH_BYTES = 1 << 30
 
 
-def _plan_arrays(plan: WidePlan, n_bank: int, device):
-    """(instrs (S*W, 4) int32 = base op, ia, ib, dst with operands remapped
+def _real_slots(plan: WidePlan):
+    """(op, sa, sb, ia, ib, dst) of the plan's real slots in step order, NOP
+    slots (``dst == 0``) dropped.  No slot reads a register written in its
+    own step, so any order within a step, this one included, is valid."""
+    keep = np.nonzero(plan.dst.reshape(-1) != 0)[0]
+    opc = plan.opc.reshape(-1)[keep]
+    return (opc // 9, (opc // 3) % 3, opc % 3, plan.ia.reshape(-1)[keep],
+            plan.ib.reshape(-1)[keep], plan.dst.reshape(-1)[keep], keep)
+
+
+def _plan_arrays(plan: WidePlan, n_bank: int, device, drop_nops: bool = False):
+    """(instrs (N, 4) int32 = base op, ia, ib, dst with operands remapped
     to file indices — register r -> r, bank b -> R + b, const c -> R + B + c
-    — and out_regs (n_out,) int32), cached on the plan per device."""
+    — and out_regs (n_out,) int32), cached on the plan per device.  All
+    S * W slots in step order, or only the real ones with ``drop_nops``."""
     cache = plan.__dict__.setdefault("_dev_cache", {})
-    key = (str(device), n_bank)
+    key = (str(device), n_bank, drop_nops)
     hit = cache.get(key)
     if hit is None:
         R = plan.n_regs
-        sa = (plan.opc // 3) % 3
-        sb = plan.opc % 3
+        op, sa, sb, ia, ib, dst, keep = _real_slots(plan)
+        if not drop_nops:
+            flat = plan.opc.reshape(-1)
+            op, sa, sb = flat // 9, (flat // 3) % 3, flat % 3
+            ia, ib, dst = (x.reshape(-1) for x in (plan.ia, plan.ib, plan.dst))
 
         def remap(space, idx):
             out = idx.astype(np.int64).copy()
@@ -426,8 +454,7 @@ def _plan_arrays(plan: WidePlan, n_bank: int, device):
             return out
 
         instrs = np.stack(
-            [plan.opc // 9, remap(sa, plan.ia), remap(sb, plan.ib), plan.dst],
-            axis=-1,
+            [op, remap(sa, ia), remap(sb, ib), dst], axis=-1
         ).reshape(-1, 4).astype(np.int32)
         hit = (
             torch.from_numpy(instrs).to(device),
@@ -437,9 +464,244 @@ def _plan_arrays(plan: WidePlan, n_bank: int, device):
     return hit
 
 
+_OUT = 3  # kernel-only op: store register a as output row b
+# flag bits of an encoded instruction (csrc/wtape.cu)
+_F_A_CONST, _F_B_NO_LOAD, _F_OUT, _F_MUL, _F_SUB = 1, 2, 4, 8, 16
+
+
+@dataclass
+class KernelProgram:
+    """A plan as the shared-memory kernel runs it: the plan's real
+    instructions re-ordered into bundles of ``width`` independent
+    instructions, with registers re-allocated for one thread per lane.  Register operands are register
+    numbers, constant operands indices into the run-time constant vector;
+    bank row ``b`` is preloaded into register ``bank_reg[b]``; op `_OUT`
+    stores register ``a`` as output row ``b``."""
+
+    op: np.ndarray  # (N,) 0 add, 1 sub, 2 mul, 3 out
+    a: np.ndarray  # (N,) register number or constant index
+    a_const: np.ndarray  # (N,) bool
+    b: np.ndarray  # (N,) register number, constant index or output row
+    b_const: np.ndarray
+    dst: np.ndarray  # (N,) register number
+    bank_reg: np.ndarray  # (B,) register of bank row b, -1 if never read
+    n_regs: int
+    n_out: int
+    width: int  # instructions per bundle; len(op) is a multiple of it
+    n_fill: int  # NOPs that fill short bundles, counted in len(op)
+
+    def encode(self, lanes: int):
+        """(instrs (padded, 4) int32, bank_off (B,) int32) for blocks of
+        ``lanes`` lanes, in the layout of ``csrc/wtape.cu``: one flag bit
+        per question the kernel asks, register operands as byte offsets
+        premultiplied by ``lanes``, zero entries up
+        to a whole number of chunks of `_CHUNK` and two chunks more (the
+        kernel fetches two chunks ahead)."""
+        is_out = self.op == _OUT
+        x = (self.a_const * _F_A_CONST + (self.b_const | is_out) * _F_B_NO_LOAD
+             + is_out * _F_OUT + (self.op == _MUL) * _F_MUL
+             + (self.op == _SUB) * _F_SUB)
+        word = 4 * lanes  # bytes between registers
+        instrs = np.stack(
+            [x, np.where(self.a_const, self.a, self.a * word),
+             np.where(self.b_const | is_out, self.b, self.b * word),
+             self.dst * word], axis=-1,
+        ).reshape(-1, 4)
+        pad = -len(instrs) % _CHUNK + 2 * _CHUNK
+        instrs = np.concatenate([instrs, np.zeros((pad, 4), np.int64)])
+        bank_off = np.where(self.bank_reg >= 0, self.bank_reg * word, -1)
+        return instrs.astype(np.int32), bank_off.astype(np.int32)
+
+
+def kernel_program(plan: WidePlan) -> KernelProgram:
+    """Build (and cache on the plan) the `KernelProgram` of ``plan``.
+
+    The plan's schedule keeps 32 slots a step busy and so keeps many
+    values alive; one thread per lane has no use for that.  The values are
+    recovered from the register grid (value ``b < B`` is bank row ``b``,
+    value ``B + i`` the result of real slot ``i``) and ordered depth first
+    from the outputs, the operand that needs more registers first
+    (Sethi-Ullman).  A list scheduler then packs them, earliest in that
+    order first, into bundles of `_BUNDLE` instructions that do not depend
+    on each other (the thread overlaps their shared-memory loads); a bundle
+    short of ready instructions is filled with NOPs, ``spare = spare +
+    spare`` on a register that nothing else reads (no constant operand, so a
+    plan without constants never makes the kernel look one up).
+    Registers come from a linear scan over the bundles: all of a bundle's
+    operands are read before any result is written, so a register is free
+    again in the bundle of its value's last reader.  An output is stored
+    (op `_OUT`) in a bundle after the one that computes it and holds no
+    register afterwards.  The results are those of the plan whatever the
+    order: only the register numbering changes."""
+    hit = plan.__dict__.get("_kernel_program")
+    if hit is not None:
+        return hit
+    import heapq
+
+    width = _BUNDLE
+
+    B = len(plan.used_bank)
+    op, sa, sb, ia, ib, dst, keep = _real_slots(plan)
+    step = keep // plan.width
+    n = len(op)
+    # operands as (is_const, value id or constant index)
+    holder: dict[int, int] = {}
+    pending: list = []
+    srcs = []
+    for i in range(n):
+        if i and step[i] != step[i - 1]:
+            holder.update(pending)
+            pending = []
+        pair = []
+        for space, idx in ((sa[i], ia[i]), (sb[i], ib[i])):
+            idx = int(idx)
+            if space == 0:
+                if idx not in holder:
+                    raise ValueError(f"plan reads register {idx} before it is written")
+                pair.append((False, holder[idx]))
+            elif space == 1:
+                pair.append((False, idx))
+            else:
+                pair.append((True, idx))
+        srcs.append(pair)
+        pending.append((int(dst[i]), B + i))
+    holder.update(pending)
+    out_vals = [holder[int(r)] for r in plan.out_regs]
+    if any(v < B for v in out_vals):
+        raise ValueError("plan output is a bare bank row, not an instruction")
+
+    def operands(v):
+        return [x for c, x in srcs[v - B] if not c and x >= B]
+
+    # registers a value's subtree needs (bank values are resident throughout)
+    need = [1] * (B + n)
+    for v in range(B, B + n):
+        ns = sorted((need[c] for c in operands(v)), reverse=True)
+        need[v] = max([1] + [x + k for k, x in enumerate(ns)])
+    order, done = [], [False] * (B + n)
+    for root in out_vals:
+        stack = [(root, False)]
+        while stack:
+            v, expanded = stack.pop()
+            if v < B or done[v]:
+                continue
+            if expanded:
+                done[v] = True
+                order.append(v)
+                continue
+            stack.append((v, True))
+            # pushed in ascending need, so the neediest operand is visited first
+            for c in sorted(operands(v), key=lambda c: need[c]):
+                if not done[c]:
+                    stack.append((c, False))
+
+    # nodes: ("v", value) computes a value, ("o", k) stores output k; the
+    # priority is the depth-first position, an output right after its value
+    pos = {v: k for k, v in enumerate(order)}
+    deps = {("v", v): set(operands(v)) for v in order}
+    prio = {("v", v): (pos[v], 0) for v in order}
+    for k, v in enumerate(out_vals):
+        deps[("o", k)] = {v}
+        prio[("o", k)] = (pos[v], 1 + k)
+    waiting = {node: len(d) for node, d in deps.items()}
+    users: dict[int, list] = {}
+    for node, d in deps.items():
+        for v in d:
+            users.setdefault(v, []).append(node)
+    ready = [(prio[node], node) for node, w in waiting.items() if w == 0]
+    heapq.heapify(ready)
+    bundles = []
+    while ready:
+        cur = [heapq.heappop(ready)[1] for _ in range(min(width, len(ready)))]
+        bundles.append(cur)
+        for kind, v in cur:
+            if kind == "v":
+                for node in users.get(v, ()):
+                    waiting[node] -= 1
+                    if waiting[node] == 0:
+                        heapq.heappush(ready, (prio[node], node))
+
+    def reads(node):
+        if node[0] == "o":
+            return [out_vals[node[1]]]
+        return [x for c, x in srcs[node[1] - B] if not c]
+
+    last_reader = {}
+    for k, bundle in enumerate(bundles):
+        for node in bundle:
+            for x in reads(node):
+                last_reader[x] = k
+    reg = {}
+    bank_reg = np.full(B, -1, np.int64)
+    next_reg = 0
+    for b in range(B):
+        if b in last_reader:
+            reg[b] = bank_reg[b] = next_reg
+            next_reg += 1
+    free: list = []
+    spare = None  # destination of the NOPs
+    n_fill = 0
+    rows = []  # (op, a, a_const, b, b_const, dst)
+    for k, bundle in enumerate(bundles):
+        operand_regs = {x: reg[x] for node in bundle for x in reads(node)}
+        for x in operand_regs:
+            if last_reader[x] == k:
+                heapq.heappush(free, reg.pop(x))
+        for kind, v in bundle:
+            if kind == "o":
+                rows.append((_OUT, operand_regs[out_vals[v]], False, v, False, 0))
+                continue
+            (ac, ax), (bc, bx) = srcs[v - B]
+            if free:
+                r = heapq.heappop(free)
+            else:
+                r, next_reg = next_reg, next_reg + 1
+            reg[v] = r
+            rows.append((int(op[v - B]), ax if ac else operand_regs[ax], ac,
+                         bx if bc else operand_regs[bx], bc, r))
+        if len(bundle) < width:
+            if spare is None:
+                spare, next_reg = next_reg, next_reg + 1
+            rows += [(_ADD, spare, False, spare, False, spare)] * (width - len(bundle))
+            n_fill += width - len(bundle)
+    cols = list(zip(*rows)) if rows else [[]] * 6
+    arr = [np.asarray(c, np.int64) for c in cols]
+    prog = KernelProgram(
+        op=arr[0], a=arr[1], a_const=arr[2].astype(bool), b=arr[3],
+        b_const=arr[4].astype(bool), dst=arr[5],
+        bank_reg=bank_reg, n_regs=max(1, next_reg), n_out=len(out_vals),
+        width=width, n_fill=n_fill,
+    )
+    plan.__dict__["_kernel_program"] = prog
+    return prog
+
+
+def smem_bytes(n_regs: int, lanes: int) -> int:
+    """Dynamic shared memory of a block of ``lanes`` lanes: two instruction
+    chunks and the register file."""
+    return (2 * _CHUNK * 4 + n_regs * lanes) * 4
+
+
+def pick_lanes(n_regs: int, n: int):
+    """Lanes per block (one warp, ``lanes / 32`` lanes a thread) for the
+    shared-memory kernel, or None if the register file does not fit a block
+    even at 32 lanes.  32 lanes give the most warps for the shared memory
+    and spread a short domain over the most SMs.  64 only where an SM's cap
+    of 32 resident blocks, not its shared memory, limits the 32-lane block
+    (files of up to 41 registers) and the domain is longer than the card
+    holds at once under that cap: two lanes a thread then double the lanes
+    in flight (measured on an H100 by ``chip_smoke.py --kernels``: 64 lanes
+    win there by 4 to 18%, and lose everywhere else)."""
+    smem = smem_bytes(n_regs, 32)
+    if smem > _SMEM_BLOCK_BYTES:
+        return None
+    capped = _SMEM_SM_BYTES // (smem + _SMEM_RESERVED) >= _BLOCKS_PER_SM
+    return 64 if capped and n > _SM_COUNT * _BLOCKS_PER_SM * 32 else 32
+
+
 def run_plan_plain(rows, consts, instrs, out_regs, n_regs: int, width: int):
-    """Plain torch interpreter with the semantics of ``csrc/wtape.cu``: one
-    (W, n) gather + op + scatter per scheduled step of ``width`` slots."""
+    """Plain torch interpreter of a plan (`_plan_arrays` form): one (W, n)
+    gather + op + scatter per scheduled step of ``width`` slots."""
     n = int(rows.shape[1])
     file = torch.cat([
         rows.new_zeros((n_regs, n)),
@@ -458,28 +720,40 @@ def run_plan_plain(rows, consts, instrs, out_regs, n_regs: int, width: int):
     return file.index_select(0, out_regs.long())
 
 
-def run_plan(rows, const_vals, plan: WidePlan):
-    """Execute a WidePlan over prepared (B, n) row-order int64 bank rows.
+def _launch_shape(plan: WidePlan, n: int):
+    return (plan.n_steps, plan.n_regs, len(plan.used_bank),
+            len(plan.out_regs), n)
 
-    ``const_vals``: the plan's runtime constant vector.  Returns (n_out, n)
-    int64.  CUDA tensors launch ``csrc/wtape.cu`` (the kernel allocates
-    nothing: the scratch register file and the output come from here);
-    CPU tensors take `run_plan_plain`."""
-    if rows.dim() != 2 or rows.dtype != torch.int64 or not rows.is_contiguous():
-        raise ValueError(f"run_plan wants contiguous 2-D int64 rows, got "
-                         f"{tuple(rows.shape)} {rows.dtype}")
+
+def _run_plan_smem(rows, consts, plan: WidePlan, prog: KernelProgram, lanes: int):
     B, n = int(rows.shape[0]), int(rows.shape[1])
-    if B != len(plan.used_bank):
-        raise ValueError(f"run_plan: {B} bank rows for a plan of {len(plan.used_bank)}")
     device = rows.device
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"run_plan: unsupported device {device}")
-    consts = torch.as_tensor(np.asarray(const_vals, np.int64), device=device)
-    instrs, out_regs = _plan_arrays(plan, B, device)
+    cache = plan.__dict__.setdefault("_dev_cache", {})
+    key = (str(device), "smem", lanes)
+    hit = cache.get(key)
+    if hit is None:
+        hit = cache[key] = tuple(
+            torch.from_numpy(x).to(device) for x in prog.encode(lanes))
+    instrs, bank_off = hit
+    out = torch.empty((prog.n_out, n), dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        err = kernels.lib().cm_wtape_run(
+            rows.data_ptr(), consts.data_ptr(), instrs.data_ptr(),
+            bank_off.data_ptr(), out.data_ptr(), len(prog.op),
+            prog.n_regs, B, n, lanes,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    kernels.check(err, "wtape_run_plan")
+    kernels.count("wtape_run_plan", _launch_shape(plan, n))
+    return out
+
+
+def _run_plan_global(rows, consts, plan: WidePlan):
+    B, n = int(rows.shape[0]), int(rows.shape[1])
+    device = rows.device
+    instrs, out_regs = _plan_arrays(plan, B, device, drop_nops=True)
     R = plan.n_regs
     n_out = int(out_regs.shape[0])
-    if device.type == "cpu":
-        return run_plan_plain(rows, consts, instrs, out_regs, R, plan.width)
     out = torch.empty((n_out, n), dtype=torch.int64, device=device)
     tile = n
     while tile > 1024 and R * tile * 4 > _SCRATCH_BYTES:
@@ -489,15 +763,57 @@ def run_plan(rows, const_vals, plan: WidePlan):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         for lane0 in range(0, n, tile):
-            err = lib.cm_wtape_run(
+            err = lib.cm_wtape_run_global(
                 rows.data_ptr(), consts.data_ptr(), instrs.data_ptr(),
                 out_regs.data_ptr(), out.data_ptr(), scratch.data_ptr(),
                 int(instrs.shape[0]), R, B, n_out, n, lane0, min(tile, n - lane0),
                 stream,
             )
-            kernels.check(err, "wtape_run_plan")
-            kernels.launches["wtape_run_plan"] += 1
+            kernels.check(err, "wtape_run_plan_global")
+            kernels.count("wtape_run_plan_global", _launch_shape(plan, n))
     return out
+
+
+def run_plan(rows, const_vals, plan: WidePlan, variant: str | None = None):
+    """Execute a WidePlan over prepared (B, n) row-order int64 bank rows.
+
+    ``const_vals``: the plan's runtime constant vector.  Returns (n_out, n)
+    int64.  CPU tensors take `run_plan_plain`.  CUDA tensors launch a kernel
+    of ``csrc/wtape.cu`` (the kernels allocate nothing: the output and the
+    scratch come from here): the shared-memory kernel when the
+    `kernel_program`'s register file fits a block (`pick_lanes`), else the
+    global-scratch kernel.  The choice is this rule on the register count
+    alone; ``variant`` ("smem" or "global") overrides it so that a test can
+    hold either kernel to the plain version on any plan.  A launch that
+    fails raises: neither kernel stands in for the other."""
+    if rows.dim() != 2 or rows.dtype != torch.int64 or not rows.is_contiguous():
+        raise ValueError(f"run_plan wants contiguous 2-D int64 rows, got "
+                         f"{tuple(rows.shape)} {rows.dtype}")
+    B, n = int(rows.shape[0]), int(rows.shape[1])
+    if B != len(plan.used_bank):
+        raise ValueError(f"run_plan: {B} bank rows for a plan of {len(plan.used_bank)}")
+    device = rows.device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"run_plan: unsupported device {device}")
+    if variant not in (None, "smem", "global"):
+        raise ValueError(f"run_plan: unknown variant {variant!r}")
+    if isinstance(const_vals, torch.Tensor):  # already where the rows are
+        consts = const_vals.to(device=device, dtype=torch.int64)
+    else:
+        consts = torch.as_tensor(np.asarray(const_vals, np.int64), device=device)
+    if device.type == "cpu":
+        instrs, out_regs = _plan_arrays(plan, B, device)
+        return run_plan_plain(rows, consts, instrs, out_regs, plan.n_regs,
+                              plan.width)
+    if variant != "global":
+        prog = kernel_program(plan)
+        lanes = pick_lanes(prog.n_regs, n)
+        if lanes is not None:
+            return _run_plan_smem(rows, consts, plan, prog, lanes)
+        if variant == "smem":
+            raise ValueError(
+                f"run_plan: {prog.n_regs} registers do not fit shared memory")
+    return _run_plan_global(rows, consts, plan)
 
 
 def run_wide(stacks, src, sh, const_vals, plan: WidePlan, elog: int,

@@ -14,8 +14,7 @@ check is host arithmetic.  Counterpart of ``cairo_m_tpu.prover.verify``.
 
 from __future__ import annotations
 
-import torch
-
+from ..device import DEFAULT_DEVICE, resolve_device
 from .components.registry import ComponentSet
 from .config import REGULAR_96_BITS
 from .prove import Proof, build_sample_points, oods_point_and_prevs, preprocessed_phase
@@ -30,10 +29,13 @@ class VerificationError(Exception):
     pass
 
 
-def verify_cairo_m(proof: Proof, config=REGULAR_96_BITS, *, device) -> bool:
+def verify_cairo_m(proof: Proof, config=REGULAR_96_BITS, *,
+                   device=DEFAULT_DEVICE) -> bool:
     """Verify ``proof``; raises VerificationError on the first failed check.
-    ``device`` (a torch device or its name) recomputes the preprocessed
+    ``device`` (a torch device or its name; the card unless the caller names
+    another, and an error without one) recomputes the preprocessed
     commitment."""
+    device = resolve_device(device)
     channel = config.make_channel()
     config.mix_into(channel)
     proof.public_data.mix_into(channel)
@@ -51,7 +53,7 @@ def verify_cairo_m(proof: Proof, config=REGULAR_96_BITS, *, device) -> bool:
     scheme = pcs.CommitmentSchemeVerifier(channel, config)
 
     # phase 0: preprocessed (recomputed expectation)
-    expected = preprocessed_phase(comps, config, torch.device(device)).roots()
+    expected = preprocessed_phase(comps, config, device).roots()
     if proof.pcs_proof.phase_roots[0] != expected:
         raise VerificationError("preprocessed commitment mismatch")
     pre_cols_meta, pre_owners = comps.preprocessed_columns()

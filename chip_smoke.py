@@ -2,7 +2,9 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py --kernels  # phases 1-3, and the wide-tape kernel's
+                                     # time on every plan at both block sizes
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -10,21 +12,28 @@ Phases (each raises on failure, so the script exits non-zero):
    CUDA kernels from ``cairo_m_tpu_torch/csrc`` and time the build;
 2. BLAKE2s leaf kernel vs its plain torch version on the card, bit for bit,
    at the Merkle shapes of the main path, plus a few lanes vs ``hashlib``;
-3. wide-tape kernel vs its plain torch version on the card, bit for bit, on
-   real plans recorded from the fibonacci-100k witness;
+   timed beside its bound at the shapes of PERF.md's kernel table;
+3. wide-tape kernels vs the plain torch version on the card, bit for bit,
+   on every plan of the fibonacci-100k witness (interaction, table count and
+   composition of each live component): the shared-memory kernel, which the
+   rule must pick for each, and the global-scratch kernel, forced; the
+   table's plans are timed beside their bounds; a synthetic plan whose
+   register file is beyond shared memory must go to the global-scratch
+   kernel by the rule and agree with plain;
 4. at test scale, fib-40 proved on the card and on the CPU (plain
    versions): the two proofs' JSON must be byte-equal and match the
    committed reference digest ``tests/golden/fib40_proof_sha256.json``;
 5. the main path at full size: compile fibonacci, run the native VM +
    adapter for 100,000 iterations (800,010 cycles), prove twice at
-   ``REGULAR_96_BITS`` (production tables) and verify; both kernels must
-   have launched during that run;
+   ``REGULAR_96_BITS`` (production tables) and verify, without naming a
+   device (the card is the default); both kernels must have launched during
+   that run, and the launches of the warm prove are printed by shape;
 6. the stwo framing: (a) fib-40 at test scale on the card and on the CPU,
    byte-equal and matching ``tests/golden/fib40_stwo_proof_sha256.json``;
-   (b) fib-100k at ``STWO_FRAMING_96_BITS`` (production tables) proved cold
-   and warm and verified on the card; the wide-tape kernel must have
-   launched (the stwo trees are hashed on the host, so the BLAKE2s kernel
-   is expected to launch 0 times);
+   (b) fib-100k at ``STWO_FRAMING_96_BITS`` (production tables) proved once
+   and verified on the card; the wide-tape kernel must have launched (the
+   stwo trees are hashed on the host, so the BLAKE2s kernel is expected to
+   launch 0 times);
 7. the command line, in subprocesses: compile fibonacci; prove
    fibonacci(10,000) with ``--max-steps 50000`` (two segments,
    ``REGULAR_96_BITS``, production tables) with ``--verify``; ``verify``
@@ -40,8 +49,10 @@ Phases (each raises on failure, so the script exits non-zero):
 Launch counts are read per path: zeroed just before each path is driven
 and read just after (the segment and command-line paths count inside their
 worker processes).  The last two lines of standard output are a JSON
-summary of the kernels and ``{"ok": true, "device": {...}}``.  Imports
-nothing of JAX.
+summary of the kernels (time, plain version's time, bound and launches on
+the main path) and ``{"ok": true, "device": {...}}``.  Imports nothing of
+JAX and nothing of the JAX package ``cairo_m_tpu``, and says so before its
+last lines.
 """
 
 import hashlib
@@ -59,7 +70,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-from cairo_m_tpu.compiler import compile_cairo  # noqa: E402
+from cairo_m_tpu_torch.compiler import compile_cairo  # noqa: E402
 from cairo_m_tpu_torch import kernels  # noqa: E402
 from cairo_m_tpu_torch.hash import blake2s  # noqa: E402
 from cairo_m_tpu_torch.prover import config  # noqa: E402
@@ -92,6 +103,9 @@ TEST_SCALE = {"rc_big_bits": 10, "bitwise_log": 8}
 TEST_CONFIG = {"n_queries": 8, "pow_bits": 2}
 CHAIN_ITERS = 1_250_000  # fibonacci(1,250,000) = 10,000,010 cycles
 SEGMENT_CAP = (1 << 20) - 1
+# the kernels every native-framing path must launch; the global-scratch
+# variant of the wide-tape kernel takes no plan of the prover today
+PATH_KERNELS = ("blake2s_leaves", "wtape_run_plan")
 
 
 def log(msg):
@@ -105,9 +119,10 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 10) -> float:
+def time_ms(fn, reps: int = 10, warm: bool = True) -> float:
     """Mean device time of ``fn`` over ``reps`` calls, after one warm-up."""
-    fn()
+    if warm:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -125,37 +140,99 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a - b).abs().max()) if a.numel() else 0
 
 
-def phase_blake2s(rng):
-    """Kernel A vs plain at the main path's (K, n) shapes."""
+# Peak rates of one H100 SXM for the bounds: device memory 3.35 TB/s; INT32
+# at half the FP32 lanes (64 of 128 per SM), i.e. a quarter of the 67 TFLOP/s
+# FP32 rate, which counts a fused multiply-add as two.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
+# integer operations of one BLAKE2s compression as the card can do them: 80 G
+# functions of 12 (a three-input add for a + b + m twice, two plain adds, four
+# xors, four rotations of one funnel shift each) and 20 for set-up and
+# feed-forward
+BLAKE2S_OPS = 80 * 12 + 20
+# of one M31 instruction as csrc/wtape.cu does it: add = add, subtract,
+# minimum; sub = subtract, add, minimum; mul = low and high product, mask,
+# funnel shift and add for the first fold, mask, shift and add for the second,
+# subtract and minimum
+M31_OPS = (3, 3, 10)
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def blake2s_bound(k: int, n: int):
+    """Each lane reads K int64 words and writes 8, and runs one compression
+    per 16 message words."""
+    return bound((k + 8) * 8 * n, max(1, -(-k // 16)) * BLAKE2S_OPS * n)
+
+
+def wtape_bound(plan, n: int):
+    """B bank rows in and n_out rows out as int64, the constants and the
+    real instructions read once; the M31 operations of the real (non-NOP)
+    instructions on every lane."""
+    real = plan.dst != 0
+    ops = sum(int(((plan.opc // 9 == k) & real).sum()) * c
+              for k, c in enumerate(M31_OPS))
+    n_bytes = ((len(plan.used_bank) + len(plan.out_regs)) * 8 * n
+               + len(plan.consts) * 8 + int(real.sum()) * 16)
+    return bound(n_bytes, ops * n)
+
+
+# the shapes of the kernel table in PERF.md
+BLAKE2S_TABLE = [(1, 1 << 21), (4, 1 << 20), (16, 1 << 20), (16, 1 << 14),
+                 (64, 1 << 18), (512, 1 << 10), (4096, 1 << 6)]
+BLAKE2S_MAIN = (16, 1 << 20)
+WTAPE_TABLE = ["interaction range_check_20", "table count range_check_20",
+               "composition range_check_20", "composition store_add_fp_imm",
+               "interaction store_add_fp_imm", "composition store_add_fp_fp",
+               "interaction poseidon2", "composition poseidon2"]
+WTAPE_MAIN = "composition store_add_fp_imm"
+
+
+def _rand(shape, high, gen):
+    return torch.randint(0, high, shape, dtype=torch.int64, device=DEV, generator=gen)
+
+
+def phase_blake2s(gen):
+    """Kernel A vs plain at the main path's (K, n) shapes; -> table rows
+    keyed by (K, n) and the summary entry of the main shape."""
     err = 0
-    cases = [(1, 1 << 5), (1, 1 << 21), (4, 1 << 12), (16, 1 << 20),
-             (17, 1 << 10), (64, 1 << 18), (512, 1 << 10), (4096, 1 << 6)]
+    cases = [(1, 1 << 5), (4, 1 << 12), (17, 1 << 10), *BLAKE2S_TABLE]
+    table = {}
     for k, n in cases:
-        cols = torch.from_numpy(
-            rng.integers(0, 1 << 32, size=(k, n), dtype=np.int64)
-        ).to(DEV)
+        cols = _rand((k, n), 1 << 32, gen)
         got = blake2s.hash_leaves(cols)
         want = torch.stack(blake2s.hash_words(list(cols)))
         e = max_abs_err(got, want)
-        log(f"  blake2s K={k:5d} n=2^{n.bit_length() - 1:2d}: max_abs_err={e}")
         err = max(err, e)
         host = cols[:, :3].cpu().numpy().astype(np.uint32)
         for j in range(3):
             ref = hashlib.blake2s(host[:, j].astype("<u4").tobytes()).digest()
             if got[:, j].cpu().numpy().astype("<u4").tobytes() != ref:
                 raise AssertionError(f"blake2s kernel != hashlib at K={k} lane {j}")
+        line = f"  blake2s K={k:5d} n=2^{n.bit_length() - 1:2d}: max_abs_err={e}"
+        if (k, n) in BLAKE2S_TABLE:
+            ms = time_ms(lambda: blake2s.hash_leaves(cols))
+            # the plain version of a long message takes seconds: one call
+            plain_ms = time_ms(lambda: torch.stack(blake2s.hash_words(list(cols))),
+                               reps=1 if k >= 512 else 3, warm=k < 512)
+            b_ms, b_by = blake2s_bound(k, n)
+            table[(k, n)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                             "bound_by": b_by, "max_abs_err": e}
+            line += (f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                     f"{b_ms:.4f} ms ({b_by}), kernel/bound {ms / b_ms:.2f}")
+        log(line)
     # zero-padded messages (leaf column counts padded to a power of two)
-    cols = torch.from_numpy(rng.integers(0, 1 << 31, size=(12, 1 << 16))).to(DEV)
+    cols = _rand((12, 1 << 16), 1 << 31, gen)
     padded = torch.cat([cols, torch.zeros((4, 1 << 16), dtype=torch.int64, device=DEV)])
     err = max(err, max_abs_err(blake2s.hash_leaves(cols, 16), blake2s.hash_leaves(padded)))
     if err:
         raise AssertionError(f"blake2s kernel disagrees with plain: {err}")
-    k, n = 16, 1 << 20
-    cols = torch.from_numpy(rng.integers(0, 1 << 32, size=(k, n), dtype=np.int64)).to(DEV)
-    ms = time_ms(lambda: blake2s.hash_leaves(cols))
-    plain_ms = time_ms(lambda: torch.stack(blake2s.hash_words(list(cols))), reps=3)
-    log(f"  blake2s K=16 n=2^20: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": "K=16 n=2^20"}
+    return table
 
 
 class _FakeChannel:
@@ -168,23 +245,25 @@ class _FakeChannel:
         return (self.i * 12345 % 2147483647, self.i, 7, 11)
 
 
-def _check_plan(name, plan, elog, consts, rng):
-    n = 1 << elog
-    rows = torch.from_numpy(
-        rng.integers(0, (1 << 31) - 1, size=(len(plan.used_bank), n))
-    ).to(DEV)
-    got = wtape.run_plan(rows, consts, plan)
+def _plain(rows, consts, plan):
     instrs, out_regs = wtape._plan_arrays(plan, rows.shape[0], DEV)
     cdev = torch.from_numpy(np.asarray(consts, np.int64)).to(DEV)
-    want = wtape.run_plan_plain(rows, cdev, instrs, out_regs, plan.n_regs, plan.width)
-    e = max_abs_err(got, want)
-    log(f"  wtape {name:34s} S={plan.n_steps:3d} R={plan.n_regs:4d} "
-        f"B={len(plan.used_bank):3d} C={len(plan.consts):4d} n=2^{elog}: max_abs_err={e}")
-    return e, rows, cdev, instrs, out_regs
+    return wtape.run_plan_plain(rows, cdev, instrs, out_regs, plan.n_regs, plan.width)
 
 
-def phase_wtape(pi, rng):
-    """Kernel B vs plain on real plans of the fib-100k witness."""
+def _plan_line(name, plan, n):
+    prog = wtape.kernel_program(plan)
+    lanes = wtape.pick_lanes(prog.n_regs, n)
+    return (f"  wtape {name:32s} S={plan.n_steps:3d} R={plan.n_regs:4d}->"
+            f"{prog.n_regs:4d} B={len(plan.used_bank):3d} C={len(plan.consts):4d} "
+            f"real={len(prog.op):4d}/{plan.n_steps * plan.width:4d} "
+            f"n=2^{n.bit_length() - 1} lanes={lanes}")
+
+
+def witness_plans(pi):
+    """Every distinct plan of the witness: (name, plan, n lanes, constants)
+    for the interaction, table-count and composition plan of each live
+    component, at the domain sizes the prover runs them."""
     relations = Relations()
     comps = ComponentSet(relations)
     comps.write_traces(pi)
@@ -192,43 +271,111 @@ def phase_wtape(pi, rng):
     live = [c for c in comps.all if not c.zero_witness]
     n_apows = max(framework.count_constraints(c) for c in live)
     apows = [(1, 0, 0, 0)] + [(3 + i, 1, 4, 1) for i in range(n_apows)]
-
-    def comp_consts(c, plan):
-        return plan.const_values(framework._DynResolver(
-            relations, shift=logup_shift_scalar((1, 2, 3, 4), c.log_size),
-            apows=apows))
-
+    dyn = framework._DynResolver(relations)
     jobs = []
-    big = max(live, key=lambda c: c.log_size)
-    plan, _ = framework.interaction_plan(big, relations)
-    jobs.append((f"interaction {big.name}", plan, big.log_size,
-                 plan.const_values(framework._DynResolver(relations))))
-    tcs = [(c, framework.table_count_plan(c, relations)[0]) for c in live]
-    tcs = [(c, p) for c, p in tcs if p is not None]
-    c, plan = max(tcs, key=lambda cp: cp[1].n_steps * cp[1].width << cp[0].log_size)
-    jobs.append((f"table count {c.name}", plan, c.log_size,
-                 plan.const_values(framework._DynResolver(relations))))
-    ops = [c for c in live if c in comps.opcodes]
-    c = max(ops, key=lambda c: framework.composition_plan(c, relations).n_steps << c.log_size)
-    plan = framework.composition_plan(c, relations)
-    jobs.append((f"composition {c.name}", plan, c.log_size + 1, comp_consts(c, plan)))
-    timed = (plan, c.log_size + 1)
-    c = comps.poseidon2
-    plan = framework.composition_plan(c, relations)
-    jobs.append((f"composition {c.name}", plan, c.log_size + 1, comp_consts(c, plan)))
+    for c in live:
+        plan, _ = framework.interaction_plan(c, relations)
+        jobs.append((f"interaction {c.name}", plan, 1 << c.log_size,
+                     plan.const_values(dyn)))
+        plan = framework.table_count_plan(c, relations)[0]
+        if plan is not None:
+            jobs.append((f"table count {c.name}", plan, 1 << c.log_size,
+                         plan.const_values(dyn)))
+        plan = framework.composition_plan(c, relations)
+        jobs.append((f"composition {c.name}", plan, 2 << c.log_size,
+                     plan.const_values(framework._DynResolver(
+                         relations, shift=logup_shift_scalar((1, 2, 3, 4), c.log_size),
+                         apows=apows))))
+    return jobs
+
+
+def synthetic_wide_plan(n_bank: int = 2000):
+    """A plan that needs more registers than shared memory holds (every bank
+    row has a register): products of neighbouring rows, summed in a tree."""
+    rec = wtape.WideRecorder()
+    ops = wtape.WideOps(rec)
+    src = [rec.bank_src("t", i, 0) for i in range(n_bank)]
+    terms = [ops.embed(ops.bmul(src[i], src[(i + 1) % n_bank])) for i in range(n_bank)]
+    total = ops.etree_sum(terms)
+    scaled = ops.bmul(total[0], rec.dyn_const("k"))
+    return wtape.schedule_wide(rec, [total[0], scaled, ops.bsub(scaled, src[0])])
+
+
+def _lanes_sweep(rows, consts, plan):
+    """Time the shared-memory kernel at both block sizes (the measurement
+    behind the rule `wtape.pick_lanes`)."""
+    cdev = torch.from_numpy(np.asarray(consts, np.int64)).to(DEV)
+    prog = wtape.kernel_program(plan)
+    times = {}
+    for lanes in wtape._LANE_CHOICES:
+        if wtape.smem_bytes(prog.n_regs, lanes) <= wtape._SMEM_BLOCK_BYTES:
+            times[lanes] = round(time_ms(
+                lambda: wtape._run_plan_smem(rows, cdev, plan, prog, lanes)), 4)
+    log(f"    ms by lanes per block: {times}")
+
+
+def phase_wtape(pi, gen):
+    """Kernel B vs plain on every plan of the fib-100k witness, each timed
+    (shared-memory kernel, global-scratch kernel; the table's plans also
+    plain).  -> (rows keyed by launch shape, the synthetic plan's entry)."""
     err = 0
-    for name, plan, elog, consts in jobs:
-        e, rows, cdev, instrs, out_regs = _check_plan(name, plan, elog, consts, rng)
+    table = {}
+    for name, plan, n, consts in witness_plans(pi):
+        rows = _rand((len(plan.used_bank), n), (1 << 31) - 1, gen)
+        before = dict(kernels.launches)
+        got = wtape.run_plan(rows, consts, plan)
+        if kernels.launches["wtape_run_plan"] != before["wtape_run_plan"] + 1:
+            raise AssertionError(f"{name}: not run by the shared-memory kernel")
+        want = _plain(rows, consts, plan)
+        e = max(max_abs_err(got, want),
+                max_abs_err(wtape.run_plan(rows, consts, plan, variant="global"), want))
         err = max(err, e)
-        if plan is timed[0]:
-            ms = time_ms(lambda: wtape.run_plan(rows, consts, plan))
-            plain_ms = time_ms(lambda: wtape.run_plan_plain(
-                rows, cdev, instrs, out_regs, plan.n_regs, plan.width), reps=3)
-            shape = f"{name} S={plan.n_steps} n=2^{elog}"
-            log(f"  wtape {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        cdev = torch.from_numpy(np.asarray(consts, np.int64)).to(DEV)
+        ms = time_ms(lambda: wtape.run_plan(rows, cdev, plan))
+        global_ms = time_ms(lambda: wtape.run_plan(rows, cdev, plan, variant="global"))
+        b_ms, b_by = wtape_bound(plan, n)
+        row = {"name": name, "ms": ms, "global_ms": global_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "max_abs_err": e}
+        table[wtape._launch_shape(plan, n)] = row
+        line = (_plan_line(name, plan, n) + f": max_abs_err={e}, kernel {ms:.4f} ms, "
+                f"global-scratch kernel {global_ms:.4f} ms, bound {b_ms:.5f} ms "
+                f"({b_by}), kernel/bound {ms / b_ms:.2f}")
+        if name in WTAPE_TABLE:  # the plain version is slow: the table's plans only
+            row["plain_ms"] = time_ms(lambda: _plain(rows, consts, plan), reps=2)
+            line += f", plain {row['plain_ms']:.4f} ms"
+        log(line)
+        if "--kernels" in sys.argv[1:]:
+            _lanes_sweep(rows, consts, plan)
+        del rows, got, want
     if err:
         raise AssertionError(f"wtape kernel disagrees with plain: {err}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": shape}
+    missing = set(WTAPE_TABLE) - {r["name"] for r in table.values() if "plain_ms" in r}
+    if missing:
+        raise AssertionError(f"plans of the kernel table not in the witness: {missing}")
+
+    # the global-scratch kernel by the rule: a register file too large for
+    # shared memory
+    plan = synthetic_wide_plan()
+    n = 1 << 12
+    rows = _rand((len(plan.used_bank), n), (1 << 31) - 1, gen)
+    consts = plan.const_values({"k": 123456789})
+    before = dict(kernels.launches)
+    got = wtape.run_plan(rows, consts, plan)
+    if (kernels.launches["wtape_run_plan_global"] <= before["wtape_run_plan_global"]
+            or kernels.launches["wtape_run_plan"] != before["wtape_run_plan"]):
+        raise AssertionError("the synthetic plan did not take the global-scratch kernel")
+    e = max_abs_err(got, _plain(rows, consts, plan))
+    if e:
+        raise AssertionError(f"global-scratch wtape kernel disagrees with plain: {e}")
+    ms = time_ms(lambda: wtape.run_plan(rows, consts, plan))
+    plain_ms = time_ms(lambda: _plain(rows, consts, plan), reps=2)
+    b_ms, b_by = wtape_bound(plan, n)
+    log(_plan_line("synthetic (global-scratch kernel)", plan, n)
+        + f": max_abs_err={e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by})")
+    synthetic = {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by}
+    return table, synthetic
 
 
 def _golden(name):
@@ -258,30 +405,37 @@ def phase_test_scale(program, framing, golden):
         config.set_production_scale()
 
 
-def prove_full(pi, cfg, label):
-    """Prove cold and warm on the card and verify; -> (launches, stats)."""
+def prove_full(pi, cfg, label, runs=("cold", "warm")):
+    """Prove on the card (the first proof of a process is cold: CUDA
+    context, preprocessed commitment, plan recording) and verify.  The
+    device is never named: the card is the entry points' default.
+    -> (launches, launch shapes of the last prove)."""
     kernels.reset_launches()
-    runs = []
-    for run in ("cold", "warm"):
+    secs = {}
+    for run in runs:
         timing = {}
+        shapes_before = dict(kernels.launch_shapes)
         torch.cuda.synchronize()
         t = time.time()
-        proof = prove_cairo_m(pi, cfg, timing, device=DEV)
+        proof = prove_cairo_m(pi, cfg, timing)
         torch.cuda.synchronize()
-        runs.append(time.time() - t)
-        log(f"  {label} {run} prove: {runs[-1]:.3f} s, phases "
+        secs[run] = time.time() - t
+        shapes = {k: n - shapes_before.get(k, 0)
+                  for k, n in kernels.launch_shapes.items()
+                  if n != shapes_before.get(k, 0)}
+        log(f"  {label} {run} prove: {secs[run]:.3f} s, phases "
             + json.dumps({k: round(v, 4) for k, v in timing.items()}))
     t = time.time()
-    ok = verify_cairo_m(proof, cfg, device=DEV)
+    ok = verify_cairo_m(proof, cfg)
     verify_s = time.time() - t
     launches = dict(kernels.launches)
     if not ok:
         raise AssertionError(f"{label} proof did not verify")
     n = pi.total_steps
-    log(f"  {label}: verified in {verify_s:.3f} s; {n} cycles; warm "
-        f"{n / runs[1]:.1f} cycles/s, cold {n / runs[0]:.1f} cycles/s")
+    log(f"  {label}: verified in {verify_s:.3f} s; {n} cycles; "
+        + ", ".join(f"{run} {n / t:.1f} cycles/s" for run, t in secs.items()))
     log(f"  {label} launches: {launches}")
-    return launches, {"cold_s": runs[0], "warm_s": runs[1], "verify_s": verify_s}
+    return launches, shapes
 
 
 def _cli(*argv, timeout=900):
@@ -321,18 +475,20 @@ def phase_cli(tmp):
         ("native", "10000", 2, ["--verify"]), ("stwo", "100", 1, []),
     ):
         out = os.path.join(tmp, f"{framing}.json")
+        # no --device: the command line's default is the card
         res = _cli("prove", prog, "--arguments", arg, "--max-steps", "50000",
-                   "--framing", framing, "--device", "cuda", *check, "-o", out)
+                   "--framing", framing, *check, "-o", out)
         launches[framing] = _cli_launches(res)
         verified = [f"segment {i}: verified=True" for i in range(n_segments)]
         if check and [l for l in res.stdout.splitlines() if "verified=" in l] != verified:
             raise AssertionError(f"cli prove {framing}: not every segment verified")
-        res = _cli("verify", out, "--device", "cuda")
+        res = _cli("verify", out)
         ok = [f"segment {i}: OK" for i in range(n_segments)] + ["proof verified"]
         if res.stdout.strip().splitlines() != ok:
             raise AssertionError(f"cli verify {framing}: {res.stdout!r}")
     log(f"  cli prove launches: {launches}")
-    if min(launches["native"].values()) <= 0 or launches["stwo"]["wtape_run_plan"] <= 0:
+    if (min(launches["native"][k] for k in PATH_KERNELS) <= 0
+            or launches["stwo"]["wtape_run_plan"] <= 0):
         raise AssertionError("a kernel never launched in the cli's proofs")
     return {k: launches["native"][k] + launches["stwo"][k] for k in launches["native"]}
 
@@ -344,8 +500,9 @@ def _digest(obj):
 def phase_segments_test_scale():
     """fib-40 cut at 100 steps, two workers on the card: reference digests."""
     t = time.time()
+    # no devices: the default is the first card
     records = prove_segments_multiprocess(
-        FIB_SRC, "main", [40], 100, devices=[str(DEV)], n_processes=2,
+        FIB_SRC, "main", [40], 100, n_processes=2,
         test_scale=TEST_SCALE, test_config=TEST_CONFIG, timeout=600,
     )
     got = [_digest(r["proof"]) for r in records]
@@ -369,8 +526,8 @@ def phase_segments_full():
         log(f"  segment {r['segment']} (worker {r['worker']}): {r['n_steps']} "
             f"cycles, prove {r['prove_s']:.3f} s, verify {r['verify_s']:.3f} s, "
             f"launches {r['launches']}")
-        for name, count in r["launches"].items():
-            if count <= 0:
+        for name in PATH_KERNELS:
+            if r["launches"][name] <= 0:
                 raise AssertionError(f"kernel {name} never launched in segment {r['segment']}")
     total = sum(r["n_steps"] for r in records)
     prove_s = sum(r["prove_s"] for r in records)
@@ -404,35 +561,68 @@ def main():
     kernels.lib()
     log(f"phase 1: kernels built in {time.time() - t:.2f} s")
 
-    rng = np.random.default_rng(2024)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(2024)
     log("phase 2: blake2s leaf kernel vs plain")
-    res_a = phase_blake2s(rng)
+    table_a = phase_blake2s(gen)
 
     program = compile_cairo(FIB_SRC).program
     t = time.time()
-    pi_big = native_prover_input(program, "main", [100_000])
+    pi = native_prover_input(program, "main", [100_000])
     log(f"fib-100k native VM + adapter: {time.time() - t:.3f} s, "
-        f"{pi_big.total_steps} cycles")
-    log("phase 3: wide-tape kernel vs plain")
-    res_b = phase_wtape(pi_big, rng)
+        f"{pi.total_steps} cycles")
+    log("phase 3: wide-tape kernels vs plain, every plan of the fib-100k witness")
+    table_b, synthetic = phase_wtape(pi, gen)
+    if "--kernels" in sys.argv[1:]:
+        log("--kernels: stopping after the kernel phases")
+        return
 
     log("phase 4: test-scale proof, CUDA vs CPU vs reference digest")
     phase_test_scale(program, "native", "fib40_proof_sha256.json")
 
     log("phase 5: fib-100k at REGULAR_96_BITS, production scale")
-    t = time.time()
-    pi = native_prover_input(program, "main", [100_000])
-    log(f"  native VM + adapter {time.time() - t:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
     paths = {}
-    paths["main"], _ = prove_full(pi, config.REGULAR_96_BITS, "fib-100k")
+    paths["main"], warm_shapes = prove_full(pi, config.REGULAR_96_BITS, "fib-100k")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    for name, count in paths["main"].items():
-        if count <= 0:
+    for name in PATH_KERNELS:
+        if paths["main"][name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
+    if paths["main"]["wtape_run_plan_global"]:
+        raise AssertionError("a main-path plan took the global-scratch kernel")
+    log("  launches of one warm prove by shape (blake2s: K, message words, n; "
+        "wtape: S, R, B, n_out, n):")
+    for key, count in sorted(warm_shapes.items()):
+        log(f"    {key[0]} {key[1:]}: {count}")
+    log("  kernel table (this run): kernel ms, bound ms, launches per warm prove")
+    for (k, n), row in table_a.items():
+        row["launches"] = sum(c for key, c in warm_shapes.items()
+                              if key[0] == "blake2s_leaves" and key[2:] == (k, n))
+        log(f"    blake2s K={k} n=2^{n.bit_length() - 1}: {row['ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']}), plain "
+            f"{row['plain_ms']:.4f} ms, launches {row['launches']}")
+    for shape, row in table_b.items():
+        row["launches"] = warm_shapes.get(("wtape_run_plan", *shape), 0)
+        if "plain_ms" not in row:
+            continue
+        log(f"    wtape {row['name']} n=2^{shape[-1].bit_length() - 1}: "
+            f"{row['ms']:.4f} ms (global-scratch kernel {row['global_ms']:.4f} ms), "
+            f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}), plain "
+            f"{row['plain_ms']:.4f} ms, launches {row['launches']}")
+
+    unknown = [k for k in warm_shapes if k[0] == "wtape_run_plan" and k[1:] not in table_b]
+    if unknown:
+        raise AssertionError(f"the warm prove ran plans that phase 3 did not check: {unknown}")
+    log(f"  wide-tape kernel, sum over the {sum(r['launches'] for r in table_b.values())} "
+        f"launches of one warm prove of the times measured in phase 3: "
+        f"{sum(r['launches'] * r['ms'] for r in table_b.values()):.4f} ms "
+        f"(global-scratch kernel on the same plans: "
+        f"{sum(r['launches'] * r['global_ms'] for r in table_b.values()):.4f} ms)")
 
     log("phase 6: stwo framing")
     phase_test_scale(program, "stwo", "fib40_stwo_proof_sha256.json")
-    paths["stwo"], _ = prove_full(pi, config.STWO_FRAMING_96_BITS, "fib-100k stwo")
+    paths["stwo"], _ = prove_full(pi, config.STWO_FRAMING_96_BITS, "fib-100k stwo",
+                                  runs=("first",))
     if paths["stwo"]["wtape_run_plan"] <= 0:
         raise AssertionError("kernel wtape_run_plan never launched on the stwo path")
 
@@ -444,23 +634,36 @@ def main():
     phase_segments_test_scale()
     paths["segments"] = phase_segments_full()
 
+    def entry(name, source, replaces, row):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": paths["main"][name],
+                "launches_by_path": {p: c[name] for p, c in paths.items()},
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                # no single PyTorch call computes BLAKE2s over column lanes
+                # or interprets an M31 tape
+                "library_ms": None}
+
+    main_b = next(r for r in table_b.values() if r["name"] == WTAPE_MAIN)
+    wtape_cu = "cairo_m_tpu_torch/csrc/wtape.cu"
+    wtape_tpu = "cairo_m_tpu/prover/stark/wtape_pallas.py:69"
     summary = {"kernels": [
-        {"name": "blake2s_leaves", "route": "cuda",
-         "source": "cairo_m_tpu_torch/csrc/blake2s_leaves.cu",
-         "replaces": "cairo_m_tpu/hash/blake2s_pallas.py:83",
-         "launches": paths["main"]["blake2s_leaves"],
-         "launches_by_path": {p: c["blake2s_leaves"] for p, c in paths.items()},
-         "max_abs_err": res_a["max_abs_err"], "ms": res_a["ms"],
-         "plain_ms": res_a["plain_ms"]},
-        {"name": "wtape_run_plan", "route": "cuda",
-         "source": "cairo_m_tpu_torch/csrc/wtape.cu",
-         "replaces": "cairo_m_tpu/prover/stark/wtape_pallas.py:69",
-         "launches": paths["main"]["wtape_run_plan"],
-         "launches_by_path": {p: c["wtape_run_plan"] for p, c in paths.items()},
-         "max_abs_err": res_b["max_abs_err"], "ms": res_b["ms"],
-         "plain_ms": res_b["plain_ms"]},
+        entry("blake2s_leaves", "cairo_m_tpu_torch/csrc/blake2s_leaves.cu",
+              "cairo_m_tpu/hash/blake2s_pallas.py:83", table_a[BLAKE2S_MAIN]),
+        entry("wtape_run_plan", wtape_cu, wtape_tpu, main_b),
+        # the variant for register files beyond shared memory: no plan of
+        # the prover needs it today, so it is held to plain on a synthetic
+        # plan (phase 3) and launches 0 times on the main path
+        entry("wtape_run_plan_global", wtape_cu, wtape_tpu, synthetic),
     ]}
-    log(f"timed shapes: blake2s {res_a['shape']}; wtape {res_b['shape']}")
+    log(f"timed shapes: blake2s K={BLAKE2S_MAIN[0]} n={BLAKE2S_MAIN[1]}; wtape "
+        f"{WTAPE_MAIN} n=2^20; wtape global: synthetic plan, 2000 bank rows, n=2^12")
+    loaded = sorted(m for m, v in sys.modules.items()
+                    if v is not None and m.split(".")[0] in ("jax", "cairo_m_tpu"))
+    if loaded:
+        raise AssertionError(f"modules of JAX or of the JAX package were loaded: {loaded}")
+    log("no module of jax or cairo_m_tpu was loaded")
     log(f"card: {card_line()}")
     log(json.dumps(summary))
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain torch versions on the card,
 bit for bit, and a test-scale proof on the card against the same proof on
 the CPU.  Every test needs a CUDA device (marker ``cuda``) and skips
-without one.  The file imports no JAX, so it also runs on a machine that
-has none:
+without one.  The file imports neither JAX nor the JAX package, so it also
+runs on a machine that has none:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from cairo_m_tpu.compiler import compile_cairo
 from cairo_m_tpu_torch import kernels
+from cairo_m_tpu_torch.compiler import compile_cairo
 from cairo_m_tpu_torch.hash import blake2s
 from cairo_m_tpu_torch.prover import config
 from cairo_m_tpu_torch.prover.adapter.native_import import native_prover_input
@@ -21,7 +21,8 @@ from cairo_m_tpu_torch.prover.prove import prove_cairo_m
 from cairo_m_tpu_torch.prover.relations import Relations
 from cairo_m_tpu_torch.prover.stark import framework, wtape
 from cairo_m_tpu_torch.prover.stark.air import logup_shift_scalar
-from torch_port_helpers import FIB_SRC, P, proof_json
+from torch_port_helpers import (FIB_SRC, P, constant_free_plan, proof_json,
+                                random_wide_plan, wide_sum_plan)
 
 pytestmark = pytest.mark.cuda
 
@@ -101,6 +102,74 @@ def test_wtape_kernel_matches_plain(fib40, cuda_device, kind, name):
     assert torch.equal(got.cpu(), want)
 
 
+def _random_rows(plan, n, seed, device):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        rng.integers(0, P, size=(len(plan.used_bank), n), dtype=np.int64)
+    ).to(device)
+
+
+@pytest.mark.parametrize("variant", ["smem", "global"])
+@pytest.mark.parametrize("seed, n", [(0, 1 << 12), (1, 16), (2, 1000), (3, 1 << 15)])
+def test_wtape_variants_match_plain_on_random_plans(cuda_device, seed, n, variant):
+    """The shared-memory kernel and the global-scratch kernel, each forced,
+    on random plans; ``n`` also below a warp and not a power of two."""
+    plan, consts = random_wide_plan(seed)
+    rows = _random_rows(plan, n, seed, cuda_device)
+    name = "wtape_run_plan" if variant == "smem" else "wtape_run_plan_global"
+    before = dict(kernels.launches)
+    got = wtape.run_plan(rows, consts, plan, variant=variant)
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before[name] + 1
+    assert sum(kernels.launches.values()) == sum(before.values()) + 1
+    assert torch.equal(got.cpu(), wtape.run_plan(rows.cpu(), consts, plan))
+
+
+def test_wtape_rule_sends_a_large_file_to_the_global_kernel(cuda_device):
+    """More registers than shared memory holds: the rule, not a failed
+    launch, picks the global-scratch kernel."""
+    plan, consts = wide_sum_plan(2000)
+    assert wtape.pick_lanes(wtape.kernel_program(plan).n_regs, 256) is None
+    rows = _random_rows(plan, 256, 5, cuda_device)
+    before = dict(kernels.launches)
+    got = wtape.run_plan(rows, consts, plan)
+    torch.cuda.synchronize()
+    assert kernels.launches["wtape_run_plan_global"] == before["wtape_run_plan_global"] + 1
+    assert kernels.launches["wtape_run_plan"] == before["wtape_run_plan"]
+    assert torch.equal(got.cpu(), wtape.run_plan(rows.cpu(), consts, plan))
+    with pytest.raises(ValueError, match="do not fit"):
+        wtape.run_plan(rows, consts, plan, variant="smem")
+
+
+@pytest.mark.parametrize("variant", ["smem64", "smem32", "global"])
+def test_wtape_plan_without_constants(cuda_device, variant):
+    """A plan that uses no constant, on an empty constant vector (a null
+    pointer on the card): neither kernel looks a constant up, the fill of
+    the short bundles included."""
+    plan, consts = constant_free_plan()
+    rows = _random_rows(plan, 3000, 11, cuda_device)
+    empty = torch.zeros(0, dtype=torch.int64, device=cuda_device)
+    assert empty.data_ptr() == 0
+    if variant == "global":
+        got = wtape._run_plan_global(rows, empty, plan)
+    else:
+        prog = wtape.kernel_program(plan)
+        assert prog.n_fill > 0
+        got = wtape._run_plan_smem(rows, empty, plan, prog, int(variant[4:]))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), wtape.run_plan(rows.cpu(), consts, plan))
+
+
+@pytest.mark.parametrize("lanes", wtape._LANE_CHOICES)
+def test_wtape_every_block_size_matches_plain(cuda_device, lanes):
+    plan, consts = random_wide_plan(7)
+    rows = _random_rows(plan, 5000, 7, cuda_device)
+    cdev = torch.from_numpy(np.asarray(consts, np.int64)).to(cuda_device)
+    got = wtape._run_plan_smem(rows, cdev, plan, wtape.kernel_program(plan), lanes)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), wtape.run_plan(rows.cpu(), consts, plan))
+
+
 @pytest.mark.parametrize("framing", ["native", "stwo"])
 def test_cuda_proof_equals_cpu_proof(fib40, framing):
     pi, _, _ = fib40
@@ -108,7 +177,8 @@ def test_cuda_proof_equals_cpu_proof(fib40, framing):
     kernels.reset_launches()
     cuda_proof = prove_cairo_m(pi, cfg, device="cuda")
     # the stwo trees are hashed on the host: only the wide-tape kernel runs
-    used = kernels.launches if framing == "native" else {
-        "wtape_run_plan": kernels.launches["wtape_run_plan"]}
-    assert all(n > 0 for n in used.values()), kernels.launches
+    used = ["wtape_run_plan"] + (["blake2s_leaves"] if framing == "native" else [])
+    assert all(kernels.launches[k] > 0 for k in used), kernels.launches
+    # every plan of the prover fits the shared-memory kernel
+    assert kernels.launches["wtape_run_plan_global"] == 0
     assert proof_json(cuda_proof) == proof_json(prove_cairo_m(pi, cfg, device="cpu"))

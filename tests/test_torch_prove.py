@@ -5,9 +5,9 @@ static-memory segment of tests/test_prover_static.py, at test scale
 - both packages give byte-identical proof JSON, and each package's verifier
   accepts the other's proof;
 - the port rejects a tampered claimed sum and tampered public data;
-- with ``jax`` made unimportable, a fresh interpreter imports the port and
-  proves the segment to the reference's digest (a subprocess, because this
-  process imported JAX in conftest.py).
+- with ``jax`` and ``cairo_m_tpu`` made unimportable, a fresh interpreter
+  imports the port and proves the segment to the reference's digest (a
+  subprocess, because this process imported JAX in conftest.py).
 
 fibonacci(40) is tests/test_torch_prove_fib.py: the two reference proofs
 cost minutes of jit each, and separate files let pytest-xdist run them on
@@ -89,6 +89,7 @@ def test_port_rejects_tampered_proof(proofs, tamper):
 _NO_JAX_SCRIPT = """
 import sys
 sys.modules["jax"] = None
+sys.modules["cairo_m_tpu"] = None
 sys.path[:0] = [{repo!r}, {tests!r}]
 import torch_port_helpers as h
 from cairo_m_tpu_torch.prover import config
@@ -97,7 +98,7 @@ from cairo_m_tpu_torch.prover.prove import prove_cairo_m
 config.set_test_scale(10, 8)
 pi = h.make_static_input(import_from_runner_output)
 proof = prove_cairo_m(pi, config.test_config(n_queries=8, pow_bits=2), device="cpu")
-assert not any(m == "jax" or m.startswith("jax.") for m, v in sys.modules.items() if v)
+assert not any(m.split(".")[0] in ("jax", "cairo_m_tpu") for m, v in sys.modules.items() if v)
 print(h.proof_sha256(proof))
 """
 

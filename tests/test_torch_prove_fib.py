@@ -15,7 +15,7 @@ import os
 
 import pytest
 
-from cairo_m_tpu.compiler import compile_cairo
+from cairo_m_tpu_torch.compiler import compile_cairo
 from cairo_m_tpu_torch.prover.adapter.adapter import from_reference_prover_input
 from cairo_m_tpu_torch.prover.adapter.native_import import native_prover_input
 from cairo_m_tpu_torch.prover.prove import prove_cairo_m

@@ -6,7 +6,7 @@ native VM's resume path and proved by two worker processes:
 
 - every segment's proof hashes to the reference's
   (tests/golden/fib40_segments_sha256.json) and the root chain holds;
-- a worker runs with ``jax`` made unimportable;
+- a worker runs with ``jax`` and ``cairo_m_tpu`` made unimportable;
 - the chain check raises on an incomplete set and on a broken chain.
 """
 
@@ -68,16 +68,17 @@ def test_two_workers_match_reference_digests(one_thread):
 _NO_JAX_WORKER = """
 import sys
 sys.modules["jax"] = None
+sys.modules["cairo_m_tpu"] = None
 sys.path.insert(0, {repo!r})
 from cairo_m_tpu_torch.parallel.segments import _worker_main
 _worker_main({argv!r})
-assert not any(m == "jax" or m.startswith("jax.") for m, v in sys.modules.items() if v)
+assert not any(m.split(".")[0] in ("jax", "cairo_m_tpu") for m, v in sys.modules.items() if v)
 """
 
 
 def test_worker_runs_without_jax(tmp_path, one_thread):
     """Worker 0 of 4 proves segment 0 alone, in an interpreter that cannot
-    import JAX."""
+    import JAX or the reference package."""
     with open(tmp_path / "job.json", "w") as f:
         json.dump({"source": FIB_SRC, "entrypoint": "main", "args": [40],
                    "max_steps": SEGMENT_MAX_STEPS, "test_scale": TEST_SCALE,

@@ -19,7 +19,7 @@ import os
 import numpy as np
 import pytest
 
-from cairo_m_tpu.compiler import compile_cairo
+from cairo_m_tpu_torch.compiler import compile_cairo
 from cairo_m_tpu.prover.adapter.adapter import import_from_runner_output as r_import
 from cairo_m_tpu.prover.prove import Proof as RProof
 from cairo_m_tpu.prover.prove import prove_cairo_m as r_prove

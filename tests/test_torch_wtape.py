@@ -7,9 +7,14 @@ reference, on the fibonacci-40 witness at test scale.
   test_pallas_wide_tape_matches_scan uses, and the `lax.scan` interpreter on
   poseidon2's composition plan, which has more than 64 steps;
 - `run_wide` (bank gathers, fft->row reorder, row shifts) equals the
-  reference's on the same stacks.
+  reference's on the same stacks;
+- the instruction stream the CUDA kernel runs (`kernel_program`: NOPs
+  dropped, instructions re-ordered into bundles, registers re-allocated,
+  outputs stored when computed) gives the plan's outputs, through a NumPy
+  model of the kernel, on every plan of the witness and on random plans.
 
-The CUDA kernel is held to the plain interpreter in tests/test_torch_cuda.py."""
+The CUDA kernels themselves are held to the plain interpreter in
+tests/test_torch_cuda.py."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -26,7 +31,17 @@ from cairo_m_tpu_torch.prover.components.registry import ComponentSet
 from cairo_m_tpu_torch.prover.relations import Relations
 from cairo_m_tpu_torch.prover.stark import framework, wtape
 from cairo_m_tpu_torch.prover.stark.air import logup_shift_scalar
-from torch_port_helpers import P, both_at_test_scale, reference_fib_input, to_np, to_t
+from torch_port_helpers import (
+    P,
+    both_at_test_scale,
+    constant_free_plan,
+    random_wide_plan,
+    reference_fib_input,
+    run_kernel_stream,
+    to_np,
+    to_t,
+    wide_sum_plan,
+)
 
 
 class _Channel:
@@ -211,3 +226,138 @@ def test_run_plan_rejects_bad_input(sides):
     with pytest.raises(ValueError):
         wtape.run_plan(rows.int(), plan.consts, plan)
 
+
+
+# the components that fibonacci(40) keeps busy; the opcode components also
+# have a table-count plan
+LIVE = ["memory", "merkle", "poseidon2", "range_check_20", "store_add_fp_fp",
+        "store_sub_fp_fp", "store_add_fp_imm", "store_imm", "ret", "jmp_abs_imm",
+        "jnz_fp_imm"]
+PLANS = ([("interaction", n) for n in LIVE] + [("composition", n) for n in LIVE]
+         + [("tcount", n) for n in LIVE if n not in ("memory", "merkle", "poseidon2")])
+
+
+def _check_kernel_stream(plan, consts, n, seed, lanes, random_plan=False):
+    prog = wtape.kernel_program(plan)
+    assert len(prog.op) % prog.width == 0
+    assert prog.n_out == len(plan.out_regs)
+    # the schedule's NOP slots are gone: what is left are the plan's real
+    # instructions, one store per output, and the fill of short bundles
+    real = int((plan.dst != 0).sum())
+    assert int((prog.op == 3).sum()) == prog.n_out
+    assert len(prog.op) - prog.n_fill == real + prog.n_out
+    if real >= 100 and not random_plan:
+        assert prog.n_fill <= 0.1 * real  # the witness's plans fill their bundles
+    rows = np.random.default_rng(seed).integers(
+        0, P, size=(len(plan.used_bank), n), dtype=np.uint32)
+    want = to_np(wtape.run_plan(to_t(rows), consts, plan))
+    np.testing.assert_array_equal(run_kernel_stream(prog, lanes, rows, consts), want)
+    return prog
+
+
+@pytest.mark.parametrize("kind, name", PLANS, ids=[f"{k}-{n}" for k, n in PLANS])
+def test_kernel_stream_matches_plain(sides, kind, name):
+    """Every plan of the witness: the kernel's stream through the NumPy
+    model of the kernel == `run_plan_plain` on the plan as scheduled."""
+    _, port = sides
+    with both_at_test_scale():
+        comp = port.comp(name)
+        assert not comp.zero_witness
+        if kind == "composition":
+            plan = framework.composition_plan(comp, port.relations)
+            consts = port.comp_consts(comp, plan)
+        else:
+            plan = (framework.interaction_plan(comp, port.relations)[0]
+                    if kind == "interaction"
+                    else framework.table_count_plan(comp, port.relations)[0])
+            consts = plan.const_values(framework._DynResolver(port.relations))
+    prog = _check_kernel_stream(plan, consts, 80, len(name), 32)
+    # fewer registers than the schedule made for 32 slots a step, bank rows
+    # included
+    assert prog.n_regs <= plan.n_regs + len(plan.used_bank)
+    if kind == "composition" and name != "range_check_20":
+        assert prog.n_regs < 0.7 * plan.n_regs
+
+
+def test_witness_has_no_other_live_component(sides):
+    _, port = sides
+    assert sorted(c.name for c in port.comps.all if not c.zero_witness) == sorted(LIVE)
+
+
+@pytest.mark.parametrize("lanes", [32, 64])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_kernel_stream_on_random_plans(seed, lanes):
+    plan, consts = random_wide_plan(seed)
+    # 200 lanes: a ragged last block
+    _check_kernel_stream(plan, consts, 200, seed, lanes, random_plan=True)
+
+
+def test_global_kernel_instruction_list_drops_only_nops():
+    """The global-scratch kernel's list: the plan's real slots in step
+    order; run one by one it gives the plan's outputs."""
+    import torch
+
+    plan, consts = random_wide_plan(4)
+    rows = to_t(np.random.default_rng(4).integers(
+        0, P, size=(len(plan.used_bank), 50), dtype=np.uint32))
+    instrs, out_regs = wtape._plan_arrays(plan, rows.shape[0], rows.device,
+                                          drop_nops=True)
+    assert instrs.shape[0] == int((plan.dst != 0).sum()) < plan.opc.size
+    got = wtape.run_plan_plain(rows, torch.from_numpy(np.asarray(consts, np.int64)),
+                               instrs, out_regs, plan.n_regs, 1)
+    assert torch.equal(got, wtape.run_plan(rows, consts, plan))
+
+
+@pytest.mark.parametrize("n_regs, n, want", [
+    (80, 1 << 20, 32),    # composition plans: shared memory limits the blocks
+    (46, 1 << 18, 32),    # 29 blocks of 32 lanes an SM: still shared memory
+    (35, 1 << 19, 64),    # 32 blocks an SM cap the 32-lane block: two lanes a thread
+    (19, 1 << 21, 64),
+    (33, 1 << 9, 32),     # a short domain: the most blocks to spread
+    (548, 1 << 10, 32),   # poseidon2
+    (1800, 1 << 10, 32),  # the largest file shared memory holds
+    (1900, 1 << 10, None),
+])
+def test_pick_lanes(n_regs, n, want):
+    assert wtape.pick_lanes(n_regs, n) == want
+    if want:
+        assert wtape.smem_bytes(n_regs, want) <= 232448
+
+
+@pytest.mark.parametrize("lanes", [32, 64])
+def test_kernel_stream_without_constants(lanes):
+    """A plan that uses no constant and whose bundles are short: the NOPs
+    that fill them name no constant either, so the stream runs on an empty
+    constant vector (the kernel would look an index up in it)."""
+    plan, consts = constant_free_plan()
+    prog = wtape.kernel_program(plan)
+    assert prog.n_fill > 0
+    assert not (prog.a_const | prog.b_const).any()
+    rows = np.random.default_rng(3).integers(0, P, size=(3, 70), dtype=np.uint32)
+    want = to_np(wtape.run_plan(to_t(rows), consts, plan))
+    got = run_kernel_stream(prog, lanes, rows, np.zeros(0, np.uint32))
+    np.testing.assert_array_equal(got, want)
+    a, b, c = rows.astype(np.uint64)
+    assert want[0].tolist() == ((a * b + P - (b * c) % P) % P).tolist()
+
+
+def test_run_plan_rejects_unknown_variant():
+    plan, consts = random_wide_plan(0)
+    rows = to_t(np.zeros((len(plan.used_bank), 4), np.uint32))
+    with pytest.raises(ValueError, match="variant"):
+        wtape.run_plan(rows, consts, plan, variant="fast")
+
+
+def test_large_register_file_takes_the_global_kernel_by_rule():
+    """Every bank row holds a register, so 2000 of them are beyond shared
+    memory: `pick_lanes` says so (on the card `run_plan` then launches the
+    global-scratch kernel; tests/test_torch_cuda.py).  The plan's stream is
+    still right."""
+    plan, consts = wide_sum_plan(2000)
+    prog = wtape.kernel_program(plan)
+    assert prog.n_regs >= 2000
+    assert wtape.pick_lanes(prog.n_regs, 256) is None
+    rows = np.random.default_rng(0).integers(0, P, size=(2000, 40), dtype=np.uint32)
+    want = to_np(wtape.run_plan(to_t(rows), consts, plan))
+    np.testing.assert_array_equal(run_kernel_stream(prog, 32, rows, consts), want)
+    assert want[0].tolist() == (rows.astype(np.uint64).sum(axis=0) % P).tolist()

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import importlib
 import json
 
 import numpy as np
@@ -74,9 +75,12 @@ def configs(framing="native"):
 
 def make_static_input(import_from_runner_output, n_cells=5):
     """The static-memory segment of tests/test_prover_static.py, through the
-    given package's adapter."""
-    from cairo_m_tpu.isa.program import PublicAddressRanges
-    from cairo_m_tpu.isa.state import Segment, State
+    given package's adapter (built from that package's own ISA classes)."""
+    package = import_from_runner_output.__module__.split(".")[0]
+    PublicAddressRanges = importlib.import_module(
+        f"{package}.isa.program").PublicAddressRanges
+    state = importlib.import_module(f"{package}.isa.state")
+    Segment, State = state.Segment, state.State
 
     mem = {
         i: ((i + 1, 2 * i, 3 * i, (7 * i) % 11), 0, 0) for i in range(n_cells)
@@ -153,3 +157,116 @@ def cross_verify(rproof, tproof):
     assert verify_cairo_m(
         Proof.from_json_obj(json.loads(proof_json(rproof))), tcfg, device="cpu"
     )
+
+
+def run_kernel_stream(prog, lanes, rows, consts):
+    """NumPy model of ``csrc/wtape.cu``'s shared-memory kernel: runs the
+    encoded instruction stream of a `wtape.KernelProgram` over (B, n) bank
+    rows, block by block of ``lanes`` lanes, with the kernel's addressing
+    (one flag bit per question, register operands as byte offsets
+    premultiplied by ``lanes``, constant operands replaced by their values) and M31 arithmetic.
+    -> (n_out, n) uint32."""
+    instrs, bank_off = prog.encode(lanes)
+    rows = np.asarray(rows, np.uint64)
+    consts = np.asarray(consts, np.uint64)
+    B, n = rows.shape
+    blocks = -(-n // lanes)
+    padded = np.zeros((B, blocks * lanes), np.uint64)
+    padded[:, :n] = rows
+    file = np.zeros((blocks, prog.n_regs * lanes), np.uint64)
+    j = np.arange(lanes)
+
+    def reg(off):  # byte offset of a register -> the block's lanes' words
+        assert off % (4 * lanes) == 0
+        return off // 4 + j
+
+    for b in range(B):
+        if bank_off[b] >= 0:
+            file[:, reg(bank_off[b])] = padded[b].reshape(blocks, lanes)
+    out = np.zeros((prog.n_out, blocks * lanes), np.uint64)
+    n_instrs = len(prog.op)
+    # zero padding to whole chunks plus the two chunks the kernel fetches ahead
+    assert len(instrs) % 32 == 0 and len(instrs) >= n_instrs + 64
+    assert not instrs[n_instrs:].any()
+    assert n_instrs % prog.width == 0
+    A_CONST, B_NO_LOAD, OUT, MUL, SUB = 1, 2, 4, 8, 16
+    for base in range(0, n_instrs, prog.width):
+        # one bundle: every operand is read before any result is written
+        bundle = instrs[base : base + prog.width].tolist()
+        vals = []
+        for x, y, z, w in bundle:
+            a = consts[y] if x & A_CONST else file[:, reg(y)]
+            if x & OUT:
+                b = None
+            else:
+                b = consts[z] if x & B_NO_LOAD else file[:, reg(z)]
+            vals.append((a, b))
+        for (x, y, z, w), (a, b) in zip(bundle, vals):
+            if x & OUT:
+                out[z] = a.reshape(-1)
+            elif x & MUL:
+                file[:, reg(w)] = (a * b) % P
+            elif x & SUB:
+                file[:, reg(w)] = (a + P - b) % P
+            else:
+                file[:, reg(w)] = (a + b) % P
+    return out[:, :n].astype(np.uint32)
+
+
+def random_wide_plan(seed: int, n_bank: int = 12, n_ops: int = 300, n_out: int = 6):
+    """(plan, run-time constant vector) of a random M31 expression DAG over
+    ``n_bank`` bank rows, static and run-time constants: ``n_ops`` random
+    add / sub / mul instructions over earlier values, ``n_out`` outputs
+    (one of them twice, and one a bare bank row, which the scheduler
+    materialises as a copy)."""
+    from cairo_m_tpu_torch.prover.stark import wtape
+
+    rng = np.random.default_rng(seed)
+    rec = wtape.WideRecorder()
+    ops = wtape.WideOps(rec)
+    pool = [rec.bank_src("t", i, 0) for i in range(n_bank)]
+    pool += [rec.const(int(v)) for v in rng.integers(2, P, size=4)]
+    pool += [rec.dyn_const(("k", i)) for i in range(3)]
+    emit = (ops.badd, ops.bsub, ops.bmul)
+    values = []
+    for _ in range(n_ops):
+        a, b = (pool[i] for i in rng.integers(0, len(pool), size=2))
+        v = emit[int(rng.integers(0, 3))](a, b)
+        pool.append(v)
+        values.append(v)
+    outs = [values[i] for i in rng.integers(len(values) // 2, len(values), size=n_out - 2)]
+    outs += [outs[0], pool[0]]
+    plan = wtape.schedule_wide(rec, outs)
+    consts = plan.const_values(
+        {("k", i): int(v) for i, v in enumerate(rng.integers(0, P, size=3))})
+    return plan, consts
+
+
+def constant_free_plan():
+    """(plan, constants): two products of bank rows and their difference.
+    No instruction reads a constant (the vector holds only the schedule's
+    NOP operand), and the steps depend on each other, so every bundle of
+    the kernel's program is short."""
+    from cairo_m_tpu_torch.prover.stark import wtape
+
+    rec = wtape.WideRecorder()
+    ops = wtape.WideOps(rec)
+    a, b, c = (rec.bank_src("t", i, 0) for i in range(3))
+    ab = ops.bmul(a, b)
+    plan = wtape.schedule_wide(rec, [ops.bsub(ab, ops.bmul(b, c)), ab])
+    return plan, plan.const_values({})
+
+
+def wide_sum_plan(n_bank: int):
+    """(plan, constants) that reads every one of ``n_bank`` bank rows: their
+    sum, and the sum times a run-time constant.  Every bank row holds a
+    register in the kernel's program, so a large ``n_bank`` is a register
+    file that shared memory cannot hold."""
+    from cairo_m_tpu_torch.prover.stark import wtape
+
+    rec = wtape.WideRecorder()
+    ops = wtape.WideOps(rec)
+    terms = [ops.embed(rec.bank_src("t", i, 0)) for i in range(n_bank)]
+    total = ops.etree_sum(terms)[0]
+    plan = wtape.schedule_wide(rec, [total, ops.bmul(total, rec.dyn_const("k"))])
+    return plan, plan.const_values({"k": 123456789})
