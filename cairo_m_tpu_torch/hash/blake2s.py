@@ -5,14 +5,22 @@ Counterpart of ``cairo_m_tpu.hash.blake2s`` and of the Pallas leaf kernel
 uint32 words, which is all the Merkle trees need (column values and child
 digests).
 
-``hash_leaves`` is the wrapper of the CUDA kernel ``csrc/blake2s_leaves.cu``
-(replacing ``blake2s_pallas._leaf_kernel``): a ``(K, n)`` stack of words on
-the card goes through the kernel; a stack on the CPU goes through the plain
-torch version ``hash_words`` below.  The TPU gate (``K <= 64``,
-``n >= 1024``) is gone: every leaf pass and every device inner level of a
-Merkle tree launches the kernel.  On the card the kernel sits near the
-balance of integer issue rate and memory bandwidth (~6 operations per byte
-moved at K = 16); the design note is in the CUDA source.
+Two hand-written CUDA kernels replace ``blake2s_pallas._leaf_kernel``, which
+the TPU used for leaves and, level by level, for inner nodes:
+
+- ``hash_leaves`` wraps ``csrc/blake2s_leaves.cu``: a ``(K, n)`` stack of
+  words becomes ``(8, n)`` digests, written into ``out=`` where the caller
+  gives one (a leaf pass writes into the first columns of a packed
+  pyramid).  The TPU gate (``K <= 64``, ``n >= 1024``) is gone.
+- ``merkle_pyramid`` wraps ``csrc/blake2s_pyramid.cu``: from the leaf
+  digests in the first ``m`` columns of a packed ``(8, 2m - 1)`` pyramid it
+  writes every level above them, down to the root, in place: each launch
+  climbs nine or eleven levels in shared memory, so a tree takes at most
+  three.
+
+A tensor on the card goes through the kernels; a tensor on the CPU goes
+through the plain torch versions ``hash_words`` and ``merkle_pyramid_plain``
+below.  The design notes are in the CUDA sources, the times in PERF.md.
 
 Words are int64 tensors holding values in ``[0, 2^32)``; the plain version
 masks every sum to 32 bits and rotates on non-negative int64, so ``>>`` is
@@ -126,11 +134,20 @@ def hash_words(cols, n_words: int = None):
     return h
 
 
-def hash_leaves(stacked: torch.Tensor, n_words: int = None) -> torch.Tensor:
+def _check_cuda(t: torch.Tensor, who: str):
+    if t.device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {t.device}")
+
+
+def hash_leaves(
+    stacked: torch.Tensor, n_words: int = None, out: torch.Tensor = None
+) -> torch.Tensor:
     """(K, n) int64 word stack -> (8, n) int64 digest words.
 
     Each lane's message is its K words zero-padded to ``n_words`` (default
-    K).  CUDA tensors launch ``csrc/blake2s_leaves.cu``; CPU tensors take the
+    K).  ``out``: an (8, n) int64 tensor or view on the stack's device whose
+    rows are contiguous (any row stride), written in place and returned.
+    CUDA tensors launch ``csrc/blake2s_leaves.cu``; CPU tensors take the
     plain torch version."""
     if stacked.dim() != 2 or stacked.dtype != torch.int64:
         raise ValueError(f"hash_leaves wants a 2-D int64 stack, got "
@@ -141,20 +158,114 @@ def hash_leaves(stacked: torch.Tensor, n_words: int = None) -> torch.Tensor:
     n_words = k if n_words is None else int(n_words)
     if not 1 <= k <= n_words:
         raise ValueError(f"hash_leaves: need 1 <= K <= n_words, got {k}, {n_words}")
+    if out is None:
+        out = torch.empty((8, n), dtype=torch.int64, device=stacked.device)
+    elif (tuple(out.shape) != (8, n) or out.dtype != torch.int64
+          or out.device != stacked.device or (n > 1 and out.stride(1) != 1)):
+        raise ValueError(
+            f"hash_leaves: out must be (8, {n}) int64 on {stacked.device} with "
+            f"contiguous rows, got {tuple(out.shape)} {out.dtype} on "
+            f"{out.device}, strides {out.stride()}")
     if stacked.device.type == "cpu":
-        return torch.stack(hash_words(list(stacked), n_words))
-    if stacked.device.type != "cuda":
-        raise ValueError(f"hash_leaves: unsupported device {stacked.device}")
-    out = torch.empty((8, n), dtype=torch.int64, device=stacked.device)
+        for row, words in zip(out, hash_words(list(stacked), n_words)):
+            row.copy_(words)
+        return out
+    _check_cuda(stacked, "hash_leaves")
     lib = kernels.lib()
     with torch.cuda.device(stacked.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cm_blake2s_leaves(
-            stacked.data_ptr(), out.data_ptr(), n, k, n_words, stream
+            stacked.data_ptr(), out.data_ptr(), n, out.stride(0), k, n_words,
+            stream,
         )
     kernels.check(err, "blake2s_leaves")
     kernels.count("blake2s_leaves", (k, n_words, n))
     return out
+
+
+def pyramid_log_tile(m: int) -> int:
+    """Levels one launch of the pyramid kernel climbs from a level of m
+    digests (a block takes 2^that adjacent children): 11 where the level is
+    wide enough to fill the card with such blocks, else 9 (measured on an
+    H100: PERF.md)."""
+    return 11 if m >= 1 << 18 else 9
+
+
+def pyramid_launches(m: int, log_tile: int = None) -> int:
+    """Launches `merkle_pyramid` makes for a tree of m leaves."""
+    n = 0
+    while m > 1:
+        m >>= min(log_tile or pyramid_log_tile(m), m.bit_length() - 1)
+        n += 1
+    return n
+
+
+def pyramid_offset(n: int, level: int) -> int:
+    """First column of ``level`` (0 = the n leaves) in a packed pyramid."""
+    return 2 * n - ((2 * n) >> level)
+
+
+def _pyramid_leaves(packed: torch.Tensor) -> int:
+    """Check a packed (8, 2m - 1) pyramid; -> m."""
+    if packed.dim() != 2 or packed.dtype != torch.int64 or packed.shape[0] != 8:
+        raise ValueError(f"merkle_pyramid wants an (8, 2m - 1) int64 tensor, "
+                         f"got {tuple(packed.shape)} {packed.dtype}")
+    m = (int(packed.shape[1]) + 1) // 2
+    if m < 1 or m & (m - 1) or packed.shape[1] != 2 * m - 1:
+        raise ValueError(f"merkle_pyramid: {packed.shape[1]} columns are not "
+                         f"2m - 1 for a power of two m")
+    if not packed.is_contiguous():
+        raise ValueError("merkle_pyramid wants a contiguous tensor")
+    return m
+
+
+def merkle_pyramid_plain(packed: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of `merkle_pyramid`: one `hash_words` per level
+    over strided views of the level below, written in place."""
+    m = _pyramid_leaves(packed)
+    off = 0
+    while m > 1:
+        level = packed[:, off : off + m]
+        msg = list(level[:, 0::2]) + list(level[:, 1::2])
+        parents = packed[:, off + m : off + m + m // 2]
+        for row, words in zip(parents, hash_words(msg)):
+            row.copy_(words)
+        off += m
+        m //= 2
+    return packed
+
+
+def merkle_pyramid(packed: torch.Tensor, log_tile: int = None) -> torch.Tensor:
+    """Fill a packed Merkle pyramid above its leaves, in place.
+
+    ``packed``: (8, 2m - 1) int64, m a power of two; columns [0, m) hold the
+    leaf digests (one digest a column, word i in row i).  Columns [m, 2m - 1)
+    are written: the m/2 parents of the leaves, then their parents, ... ,
+    the root in the last column; a parent is the BLAKE2s-256 of its left
+    child's 8 words followed by its right child's.  Returns ``packed``.
+    CUDA tensors launch ``csrc/blake2s_pyramid.cu`` once per ``log_tile``
+    levels (9 or 11; default: `pyramid_log_tile` of the level a launch starts
+    from); CPU tensors take `merkle_pyramid_plain`."""
+    m = _pyramid_leaves(packed)
+    if packed.device.type == "cpu":
+        return merkle_pyramid_plain(packed)
+    _check_cuda(packed, "merkle_pyramid")
+    lib = kernels.lib()
+    stride = int(packed.shape[1])
+    off = 0
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        while m > 1:
+            tile = log_tile or pyramid_log_tile(m)
+            c = min(1 << tile, m)  # children a block takes
+            err = lib.cm_blake2s_pyramid(
+                packed.data_ptr(), stride, off, m, tile, stream
+            )
+            kernels.check(err, "blake2s_pyramid")
+            kernels.count("blake2s_pyramid", (m, c.bit_length() - 1))
+            off += 2 * m - 2 * m // c
+            m //= c
+    return packed
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The kernels live in ``csrc/*.cu`` with a plain C interface.  On first use
-each source is compiled by its own ``nvcc`` for ``sm_90a`` (all started
-together) and the objects are linked into one shared library under
-``_build/`` (named by a hash of the sources, so an edited source never loads
-a stale library), bound with ``ctypes``.  Nothing here runs at import
+The kernels live in ``csrc/*.cu`` with a plain C interface (``csrc/*.cuh``
+holds what they share).  On first use each source is compiled by its own
+``nvcc`` for ``sm_90a`` (all started together) and the objects are linked
+into one shared library under ``_build/`` (named by a hash of the sources
+and headers, so an edited file never loads a stale library), bound with
+``ctypes``.  Nothing here runs at import
 time: the CPU-only test environment imports every module and has no
 ``nvcc``.
 
@@ -29,7 +30,8 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-launches = {"blake2s_leaves": 0, "wtape_run_plan": 0, "wtape_run_plan_global": 0}
+launches = {"blake2s_leaves": 0, "blake2s_pyramid": 0, "wtape_run_plan": 0,
+            "wtape_run_plan_global": 0}
 # launches by (kernel name, *shape): which shapes a run sent to each kernel
 launch_shapes: dict = {}
 
@@ -51,10 +53,14 @@ def count(name: str, shape: tuple):
     launch_shapes[key] = launch_shapes.get(key, 0) + 1
 
 
-def _sources():
+def _csrc(suffixes):
     return sorted(
-        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cu")
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(suffixes)
     )
+
+
+def _sources():
+    return _csrc(".cu")
 
 
 def _nvcc() -> str:
@@ -69,7 +75,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _csrc((".cu", ".cuh")):
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -119,8 +125,10 @@ def lib():
         if _lib is None:
             handle = ctypes.CDLL(build())
             vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-            handle.cm_blake2s_leaves.argtypes = [vp, vp, i64, i32, i32, vp]
+            handle.cm_blake2s_leaves.argtypes = [vp, vp, i64, i64, i32, i32, vp]
             handle.cm_blake2s_leaves.restype = ctypes.c_int
+            handle.cm_blake2s_pyramid.argtypes = [vp, i64, i64, i64, i32, vp]
+            handle.cm_blake2s_pyramid.restype = ctypes.c_int
             handle.cm_wtape_run.argtypes = [
                 vp, vp, vp, vp, vp, i32, i32, i32, i64, i32, vp,
             ]

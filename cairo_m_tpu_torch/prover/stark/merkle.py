@@ -7,10 +7,13 @@ column count; inner nodes hash their two children.  Columns are stored in
 **commit order** = bit-reversed FFT order, so FRI folding pairs are
 adjacent leaves.
 
-Commitment runs on the tensors' device: the leaf pass and every inner level
-above ``2^_HOST_TOP_LOG`` nodes go through ``blake2s.hash_leaves`` (the CUDA
-kernel on the card); the top of the pyramid finishes on the host.
-Decommitment and verification are host-side path walks.
+Commitment runs on the tensors' device, down to the root: the leaf pass
+(``blake2s.hash_leaves``) writes its digests into the first columns of one
+packed ``(8, 2n - 1)`` pyramid and ``blake2s.merkle_pyramid`` fills in every
+level above them (the CUDA kernels on the card, their plain versions on the
+CPU).  The host hashes nothing of such a tree: it pulls a copy of the
+levels of at most ``2^_HOST_TOP_LOG`` nodes, the root among them, for the
+path walks.  Decommitment and verification are host-side path walks.
 """
 
 from __future__ import annotations
@@ -27,23 +30,17 @@ def _pad_cols(k: int) -> int:
     return 1 << max(0, (k - 1).bit_length())
 
 
-def _inner_msg(digests: torch.Tensor) -> torch.Tensor:
-    """(8, m) level -> (16, m/2) inner-node messages: words 0-7 = left
-    (even-lane) digests, 8-15 = right (odd).  A 16-word message is one
-    64-byte block, the same framing as a leaf message."""
-    m = digests.reshape(8, -1, 2)
-    return torch.cat([m[:, :, 0], m[:, :, 1]], dim=0).contiguous()
-
-
-# Pyramid levels at or below this node count finish on the HOST: one
-# (8, 2^_HOST_TOP_LOG) pull replaces that many small device levels per tree.
-# The value does not change proof bytes.
+# The levels of at most this many nodes are mirrored on the HOST: one pull
+# of the pyramid's last 2^(_HOST_TOP_LOG + 1) - 1 columns gives the root and
+# lets a decommitment read the upper siblings without a device gather.  The
+# value does not change proof bytes.
 _HOST_TOP_LOG = 10
 
 
 def _host_inner_levels(digests_np: np.ndarray):
     """digests_np: (m, 8) level -> list of all upper levels [(m/2, 8), ...]
-    via the vectorized NumPy BLAKE2s (blake2s.hash_words_np_vec)."""
+    via the vectorized NumPy BLAKE2s (blake2s.hash_words_np_vec): the inner
+    levels of a tree built from NumPy input."""
     levels = []
     cur = digests_np
     while cur.shape[0] > 1:
@@ -58,20 +55,22 @@ def _host_inner_levels(digests_np: np.ndarray):
 
 
 class MerkleTree:
-    """One tree over equal-length columns (length 2^log_size).
+    """One tree over equal-length columns (length n = 2^log_size).
 
-    Hybrid pyramid: leaf digests and large inner levels on the device
-    (`levels`, (8, m) int64 each); the first level of <= 2^_HOST_TOP_LOG
-    nodes is pulled and the pyramid finishes on the host (`host_chain`:
-    (m, 8) uint32 arrays for levels D-1..root, D = len(levels)).  A NumPy
-    input builds entirely on the host: levels == [] and host_chain covers
-    every level (the FRI tail layers)."""
+    A tensor input builds the whole pyramid on its device: `packed`, one
+    (8, 2n - 1) int64 tensor (leaf digests in columns [0, n), then level 1,
+    ... , the root last), and `levels`, views of it, one (8, n >> i) view per
+    level.  `host_base` is the first level of <= 2^_HOST_TOP_LOG nodes;
+    `host_chain` mirrors the levels from there to the root on the host as
+    (m, 8) uint32 arrays, pulled, not hashed.  A NumPy input builds entirely
+    on the host: levels == [], host_base == 0 and host_chain covers every
+    level (the FRI tail layers)."""
 
     def __init__(self, columns, defer_top: bool = False):
         """columns: a stacked (n_cols, n) NumPy array or int64 tensor.
 
-        ``defer_top=True``: don't pull the top device level yet — the
-        caller batches many trees' tops into ONE device->host transfer and
+        ``defer_top=True``: don't pull the top levels yet — the caller
+        batches many trees' `top_dev` into ONE device->host transfer and
         calls `finish_host` on each."""
         stacked = columns
         n_cols, n = int(stacked.shape[0]), int(stacked.shape[1])
@@ -79,7 +78,8 @@ class MerkleTree:
         self.log_size = n.bit_length() - 1
         assert 1 << self.log_size == n
         kp = _pad_cols(n_cols)
-        self.levels = []  # device levels, (8, m) each, largest first
+        self.levels = []  # views of the packed device pyramid, leaves first
+        self.host_base = 0
         if isinstance(stacked, np.ndarray):
             hashed = stacked
             if kp != n_cols:
@@ -92,22 +92,33 @@ class MerkleTree:
             self.host_chain = [leaf] + _host_inner_levels(leaf)
             self._root = self.host_chain[-1][0].astype("<u4").tobytes()
             return
-        digests = blake2s.hash_leaves(stacked.contiguous(), kp)
-        self.levels = [digests]
-        while int(digests.shape[1]) > (1 << _HOST_TOP_LOG):
-            digests = blake2s.hash_leaves(_inner_msg(digests))
-            self.levels.append(digests)
-        self.top_dev = digests  # (8, m), m <= 2^_HOST_TOP_LOG
+        self.packed = torch.empty(
+            (8, 2 * n - 1), dtype=torch.int64, device=stacked.device
+        )
+        blake2s.hash_leaves(stacked.contiguous(), kp, out=self.packed[:, :n])
+        blake2s.merkle_pyramid(self.packed)
+        offs = [blake2s.pyramid_offset(n, l) for l in range(self.log_size + 2)]
+        self.levels = [self.packed[:, a:b] for a, b in zip(offs, offs[1:])]
+        # the mirrored levels are the pyramid's last columns
+        self.host_base = max(self.log_size - _HOST_TOP_LOG, 0)
+        self.top_dev = self.packed[:, blake2s.pyramid_offset(n, self.host_base) :]
         if defer_top:
             self.host_chain = None  # caller batch-pulls and finish_host()es
             self._root = None
         else:
-            self.finish_host(digests.cpu().numpy())
+            self.finish_host(self.top_dev.cpu().numpy())
 
     def finish_host(self, top_words: np.ndarray):
-        """Complete the pyramid on host from the pulled (8, m) top level."""
-        top = np.asarray(top_words).astype(np.uint32).T.copy()  # (m, 8)
-        self.host_chain = [top] + _host_inner_levels(top)
+        """Mirror the upper levels on the host from the pulled `top_dev`
+        ((8, 2m - 1): a level of m nodes and every level above it)."""
+        top = np.asarray(top_words).astype(np.uint32).T  # (2m - 1, 8)
+        m = (top.shape[0] + 1) // 2
+        self.host_chain = []
+        off = 0
+        while m >= 1:
+            self.host_chain.append(np.ascontiguousarray(top[off : off + m]))
+            off += m
+            m //= 2
         self._root = self.host_chain[-1][0].astype("<u4").tobytes()
 
     def root(self) -> bytes:
@@ -144,9 +155,10 @@ class DecommitPlan:
     the decommitment from the host copy of `flat`.  Callers concatenate many
     plans' `flat` tensors and pull them in ONE device->host transfer.
 
-    Siblings from the tree's host-resident upper levels are collected
-    directly and appended after the device-level siblings — the order the
-    verifier consumes them in."""
+    Siblings of the levels below `tree.host_base` are gathered on the
+    device, straight from the packed pyramid; those of the host-mirrored
+    upper levels are collected directly and appended after them — the order
+    the verifier consumes them in."""
 
     def __init__(self, tree: MerkleTree, positions):
         self.positions = sorted(set(int(p) for p in positions))
@@ -158,12 +170,9 @@ class DecommitPlan:
             dev = tree.columns.device
             pos = torch.tensor(self.positions, dtype=torch.int64, device=dev)
             parts = [tree.columns.index_select(1, pos).reshape(-1)]
-        # one gather over the packed device pyramid instead of one per level
-        n_dev = len(tree.levels)
-        # host_chain[0] corresponds to pyramid level max(n_dev - 1, 0)
-        chain_base = max(n_dev - 1, 0)
+        # host_chain[0] is pyramid level host_base
+        chain_base = tree.host_base
         n_levels = chain_base + len(tree.host_chain)
-        level_off = 0
         sib_idx = []
         self.sib_counts = []
         self.host_siblings = []  # 32-byte digests, level order
@@ -176,11 +185,11 @@ class DecommitPlan:
                 par = p >> 1
                 if not parents or parents[-1] != par:
                     parents.append(par)
-            if lvl < n_dev - 1:
+            if lvl < chain_base:
                 # device level (gathered from the packed pyramid)
                 self.sib_counts.append(len(sibs))
+                level_off = blake2s.pyramid_offset(1 << tree.log_size, lvl)
                 sib_idx += [level_off + s for s in sibs]
-                level_off += int(tree.levels[lvl].shape[1])
             else:
                 hl = tree.host_chain[lvl - chain_base]
                 for s in sibs:
@@ -191,10 +200,10 @@ class DecommitPlan:
             self.host_flat = parts[0]
         else:
             if sib_idx:
-                packed = torch.cat(tree.levels[:-1], dim=1)
                 idx = torch.tensor(sib_idx, dtype=torch.int64, device=dev)
-                # (S, 8) word-major per digest
-                parts.append(packed.index_select(1, idx).T.reshape(-1))
+                # one gather for all device levels; (S, 8) word-major per
+                # digest
+                parts.append(tree.packed.index_select(1, idx).T.reshape(-1))
             self.flat = torch.cat(parts) if len(parts) > 1 else parts[0]
             self.host_flat = None
         self.size = int(

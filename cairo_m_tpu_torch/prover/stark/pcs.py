@@ -125,8 +125,8 @@ class CommitmentPhase:
         if framing == "stwo":
             self.stwo_tree = self._stwo_tree(stacked_commit, log_blowup)
             return
-        # ONE device->host pull for every tree's top level, then the host
-        # pyramids
+        # ONE device->host pull of every tree's upper levels (hashed on the
+        # device; the host only mirrors them)
         logs = sorted(self.trees, reverse=True)
         if logs:
             tops = (

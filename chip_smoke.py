@@ -3,8 +3,10 @@
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --kernels  # phases 1-3, and the wide-tape kernel's
+    python3 chip_smoke.py --kernels  # phases 1-3, the wide-tape kernel's
                                      # time on every plan at both block sizes
+                                     # and the pyramid kernel's on every
+                                     # tree at both tile sizes
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -12,7 +14,13 @@ Phases (each raises on failure, so the script exits non-zero):
    CUDA kernels from ``cairo_m_tpu_torch/csrc`` and time the build;
 2. BLAKE2s leaf kernel vs its plain torch version on the card, bit for bit,
    at the Merkle shapes of the main path, plus a few lanes vs ``hashlib``;
-   timed beside its bound at the shapes of PERF.md's kernel table;
+   timed beside its bound at the shapes of PERF.md's kernel table.  BLAKE2s
+   pyramid kernel vs its plain version on the card, bit for bit, for every
+   tree of 2^1 .. 2^22 leaves, and vs the level-by-level route it replaced
+   (one leaf-kernel launch over a copied message stack per level), which is
+   timed beside it; one root vs ``hashlib``; whole Merkle trees built on the
+   card vs on the CPU (root and decommitment); the host's seconds for
+   hashing one tree top with NumPy, which the prover no longer does;
 3. wide-tape kernels vs the plain torch version on the card, bit for bit,
    on every plan of the fibonacci-100k witness (interaction, table count and
    composition of each live component): the shared-memory kernel, which the
@@ -26,8 +34,9 @@ Phases (each raises on failure, so the script exits non-zero):
 5. the main path at full size: compile fibonacci, run the native VM +
    adapter for 100,000 iterations (800,010 cycles), prove twice at
    ``REGULAR_96_BITS`` (production tables) and verify, without naming a
-   device (the card is the default); both kernels must have launched during
-   that run, and the launches of the warm prove are printed by shape;
+   device (the card is the default); all three kernels must have launched
+   during that run, a tree takes one leaf launch and at most three pyramid
+   launches, and the launches of the warm prove are printed by shape;
 6. the stwo framing: (a) fib-40 at test scale on the card and on the CPU,
    byte-equal and matching ``tests/golden/fib40_stwo_proof_sha256.json``;
    (b) fib-100k at ``STWO_FRAMING_96_BITS`` (production tables) proved once
@@ -44,7 +53,7 @@ Phases (each raises on failure, so the script exits non-zero):
    segment's proof digest equal to ``tests/golden/fib40_segments_sha256.json``;
    (b) fibonacci(1,250,000) = 10,000,010 cycles cut at the production cap
    2^20 - 1 into 10 segments at ``REGULAR_96_BITS``: the root chain holds,
-   every proof verifies, and both kernels launch in every segment.
+   every proof verifies, and all three kernels launch in every segment.
 
 Launch counts are read per path: zeroed just before each path is driven
 and read just after (the segment and command-line paths count inside their
@@ -78,7 +87,7 @@ from cairo_m_tpu_torch.prover.adapter.native_import import native_prover_input  
 from cairo_m_tpu_torch.prover.components.registry import ComponentSet  # noqa: E402
 from cairo_m_tpu_torch.prover.prove import prove_cairo_m  # noqa: E402
 from cairo_m_tpu_torch.prover.relations import Relations  # noqa: E402
-from cairo_m_tpu_torch.prover.stark import framework, wtape  # noqa: E402
+from cairo_m_tpu_torch.prover.stark import framework, merkle, wtape  # noqa: E402
 from cairo_m_tpu_torch.prover.stark.air import logup_shift_scalar  # noqa: E402
 from cairo_m_tpu_torch.prover.verify import verify_cairo_m  # noqa: E402
 from cairo_m_tpu_torch.parallel.segments import prove_segments_multiprocess  # noqa: E402
@@ -105,7 +114,7 @@ CHAIN_ITERS = 1_250_000  # fibonacci(1,250,000) = 10,000,010 cycles
 SEGMENT_CAP = (1 << 20) - 1
 # the kernels every native-framing path must launch; the global-scratch
 # variant of the wide-tape kernel takes no plan of the prover today
-PATH_KERNELS = ("blake2s_leaves", "wtape_run_plan")
+PATH_KERNELS = ("blake2s_leaves", "blake2s_pyramid", "wtape_run_plan")
 
 
 def log(msg):
@@ -119,13 +128,19 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 10, warm: bool = True) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, after one warm-up."""
+def time_ms(fn, reps: int = 10, warm: bool = True, queued: bool = False) -> float:
+    """Mean time of ``fn`` over ``reps`` calls between two CUDA events, after
+    one warm-up.  The card waits wherever the host enqueues slower than it
+    runs, as it does in the prover; ``queued=True`` holds the card busy
+    (~20 ms of `torch.cuda._sleep`) while the host enqueues every call, so
+    that the reading is the card's time alone."""
     if warm:
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(40_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -170,6 +185,12 @@ def blake2s_bound(k: int, n: int):
     return bound((k + 8) * 8 * n, max(1, -(-k // 16)) * BLAKE2S_OPS * n)
 
 
+def pyramid_bound(m: int):
+    """m digests read and m - 1 written as 8 int64 words each; one
+    compression per node written."""
+    return bound((2 * m - 1) * 64, (m - 1) * BLAKE2S_OPS)
+
+
 def wtape_bound(plan, n: int):
     """B bank rows in and n_out rows out as int64, the constants and the
     real instructions read once; the M31 operations of the real (non-NOP)
@@ -184,8 +205,11 @@ def wtape_bound(plan, n: int):
 
 # the shapes of the kernel table in PERF.md
 BLAKE2S_TABLE = [(1, 1 << 21), (4, 1 << 20), (16, 1 << 20), (16, 1 << 14),
-                 (64, 1 << 18), (512, 1 << 10), (4096, 1 << 6)]
-BLAKE2S_MAIN = (16, 1 << 20)
+                 (64, 1 << 18), (512, 1 << 10), (1024, 1 << 5), (2048, 1 << 5),
+                 (4096, 1 << 6)]
+BLAKE2S_MAIN = (4, 1 << 20)
+PYRAMID_TABLE = [1 << 21, 1 << 20, 1 << 14, 1 << 11, 1 << 9]  # leaf digests
+PYRAMID_MAIN = 1 << 20
 WTAPE_TABLE = ["interaction range_check_20", "table count range_check_20",
                "composition range_check_20", "composition store_add_fp_imm",
                "interaction store_add_fp_imm", "composition store_add_fp_fp",
@@ -217,13 +241,16 @@ def phase_blake2s(gen):
         line = f"  blake2s K={k:5d} n=2^{n.bit_length() - 1:2d}: max_abs_err={e}"
         if (k, n) in BLAKE2S_TABLE:
             ms = time_ms(lambda: blake2s.hash_leaves(cols))
+            dev_ms = time_ms(lambda: blake2s.hash_leaves(cols), queued=True)
             # the plain version of a long message takes seconds: one call
             plain_ms = time_ms(lambda: torch.stack(blake2s.hash_words(list(cols))),
                                reps=1 if k >= 512 else 3, warm=k < 512)
             b_ms, b_by = blake2s_bound(k, n)
-            table[(k, n)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            table[(k, n)] = {"ms": ms, "dev_ms": dev_ms, "plain_ms": plain_ms,
+                             "bound_ms": b_ms,
                              "bound_by": b_by, "max_abs_err": e}
-            line += (f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            line += (f", kernel {ms:.4f} ms ({dev_ms:.4f} ms queued), plain "
+                     f"{plain_ms:.4f} ms, bound "
                      f"{b_ms:.4f} ms ({b_by}), kernel/bound {ms / b_ms:.2f}")
         log(line)
     # zero-padded messages (leaf column counts padded to a power of two)
@@ -233,6 +260,125 @@ def phase_blake2s(gen):
     if err:
         raise AssertionError(f"blake2s kernel disagrees with plain: {err}")
     return table
+
+
+def _inner_msg(digests: torch.Tensor) -> torch.Tensor:
+    """(8, m) level -> (16, m/2) inner-node messages: left child's words,
+    then the right child's."""
+    m = digests.reshape(8, -1, 2)
+    return torch.cat([m[:, :, 0], m[:, :, 1]], dim=0).contiguous()
+
+
+def pyramid_by_levels(leaves: torch.Tensor, stop: int = 1) -> list:
+    """The route the pyramid kernel replaced: one leaf-kernel launch per
+    level over a copied message stack, down to a level of ``stop`` nodes
+    (the prover stopped at 2^10 and hashed the rest on the host)."""
+    levels = [leaves]
+    while levels[-1].shape[1] > stop:
+        levels.append(blake2s.hash_leaves(_inner_msg(levels[-1])))
+    return levels
+
+
+def _hashlib_root(leaves: np.ndarray) -> bytes:
+    """Merkle root of (m, 8) uint32 leaf digests by hashlib."""
+    nodes = [d.astype("<u4").tobytes() for d in leaves]
+    while len(nodes) > 1:
+        nodes = [hashlib.blake2s(nodes[i] + nodes[i + 1]).digest()
+                 for i in range(0, len(nodes), 2)]
+    return nodes[0]
+
+
+def phase_pyramid(gen, max_log: int = 22):
+    """The pyramid kernel vs plain for every m = 2^1 .. 2^max_log; -> table
+    rows keyed by m."""
+    table = {}
+    for lg in range(1, max_log + 1):
+        m = 1 << lg
+        packed = torch.zeros((8, 2 * m - 1), dtype=torch.int64, device=DEV)
+        packed[:, :m] = _rand((8, m), 1 << 32, gen)
+        want = blake2s.merkle_pyramid_plain(packed.clone())
+        before = kernels.launches["blake2s_pyramid"]
+        got = blake2s.merkle_pyramid(packed.clone())
+        n_launches = kernels.launches["blake2s_pyramid"] - before
+        if n_launches != blake2s.pyramid_launches(m):
+            raise AssertionError(f"pyramid of 2^{lg}: {n_launches} launches")
+        e = max_abs_err(got, want)
+        if e:
+            raise AssertionError(f"pyramid kernel disagrees with plain at m=2^{lg}: {e}")
+        line = f"  pyramid m=2^{lg:2d}: max_abs_err={e}, {n_launches} launches"
+        if m == 16:
+            root = got[:, -1].cpu().numpy().astype("<u4").tobytes()
+            if root != _hashlib_root(packed[:, :m].T.cpu().numpy().astype(np.uint32)):
+                raise AssertionError("pyramid root != hashlib")
+            line += ", root equal to hashlib's"
+        if "--kernels" in sys.argv[1:] and lg >= 9:
+            sweep = {}
+            for tile in (9, 11):
+                if max_abs_err(blake2s.merkle_pyramid(packed.clone(), tile), want):
+                    raise AssertionError(f"pyramid kernel, tile 2^{tile}, != plain")
+                sweep[tile] = round(time_ms(
+                    lambda: blake2s.merkle_pyramid(packed, tile), queued=True), 4)
+            line += f", queued ms by levels a launch: {sweep}"
+        if m in PYRAMID_TABLE:
+            leaves = packed[:, :m].contiguous()
+            old = torch.cat(pyramid_by_levels(leaves), dim=1)
+            if max_abs_err(got, old):
+                raise AssertionError(f"pyramid kernel != level-by-level route at m=2^{lg}")
+            ms = time_ms(lambda: blake2s.merkle_pyramid(packed))
+            dev_ms = time_ms(lambda: blake2s.merkle_pyramid(packed), queued=True)
+            old_ms = time_ms(lambda: pyramid_by_levels(leaves))
+            old_q_ms = time_ms(lambda: pyramid_by_levels(leaves), queued=True)
+            # as the prover ran it: down to 2^10 nodes, the rest on the host
+            old_dev_ms = time_ms(lambda: pyramid_by_levels(leaves, 1 << 10))
+            plain_ms = time_ms(lambda: blake2s.merkle_pyramid_plain(packed), reps=2)
+            b_ms, b_by = pyramid_bound(m)
+            table[m] = {"ms": ms, "dev_ms": dev_ms, "old_ms": old_ms,
+                        "old_queued_ms": old_q_ms, "old_dev_ms": old_dev_ms,
+                        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "max_abs_err": e}
+            line += (f", kernel {ms:.4f} ms ({dev_ms:.4f} ms with the launches "
+                     f"queued), level-by-level route {old_ms:.4f} ms, "
+                     f"{old_q_ms:.4f} ms queued ({old_dev_ms:.4f} ms down to 2^10 "
+                     f"nodes), plain "
+                     f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+                     f"kernel/bound {ms / b_ms:.2f}")
+        log(line)
+        del packed, want, got
+    return table
+
+
+def phase_trees(gen):
+    """Whole Merkle trees on the card vs on the CPU: root, packed pyramid
+    and a decommitment of random positions."""
+    for n_cols, lg in ((3, 12), (1, 21), (16, 5), (453, 10)):
+        cols = _rand((n_cols, 1 << lg), (1 << 31) - 1, gen)
+        positions = torch.randint(0, 1 << lg, (40,), generator=gen, device=DEV).tolist()
+        before = dict(kernels.launches)
+        trees = [merkle.MerkleTree(c) for c in (cols, cols.cpu())]
+        got = {k: kernels.launches[k] - before[k] for k in before}
+        if (got["blake2s_leaves"] != 1
+                or got["blake2s_pyramid"] != blake2s.pyramid_launches(1 << lg)):
+            raise AssertionError(f"tree ({n_cols}, 2^{lg}) launched {got}")
+        decs = [merkle.finish_plans([merkle.DecommitPlan(t, positions)])[0].to_json_obj()
+                for t in trees]
+        if (trees[0].root() != trees[1].root() or decs[0] != decs[1]
+                or max_abs_err(trees[0].packed.cpu(), trees[1].packed)):
+            raise AssertionError(f"tree ({n_cols}, 2^{lg}) differs between card and CPU")
+        log(f"  tree of {n_cols} columns, 2^{lg} leaves: root, pyramid and "
+            f"decommitment equal on card and CPU; 1 leaf launch, "
+            f"{got['blake2s_pyramid']} pyramid launches")
+
+
+def host_top_seconds() -> float:
+    """Seconds the host takes to hash one tree top (1024 nodes
+    down to the root) with NumPy, as the prover did for every device tree
+    before the pyramid was finished on the card."""
+    top = np.random.default_rng(7).integers(0, 1 << 32, size=(1024, 8), dtype=np.uint32)
+    merkle._host_inner_levels(top)
+    t = time.perf_counter()
+    for _ in range(5):
+        merkle._host_inner_levels(top)
+    return (time.perf_counter() - t) / 5
 
 
 class _FakeChannel:
@@ -565,6 +711,12 @@ def main():
     gen.manual_seed(2024)
     log("phase 2: blake2s leaf kernel vs plain")
     table_a = phase_blake2s(gen)
+    log("phase 2: blake2s pyramid kernel vs plain, every tree of 2^1 .. 2^22 leaves")
+    table_p = phase_pyramid(gen)
+    phase_trees(gen)
+    top_s = host_top_seconds()
+    log(f"  host: hashing one tree top (1024 nodes to the root) with NumPy takes "
+        f"{top_s * 1e3:.2f} ms on this host")
 
     program = compile_cairo(FIB_SRC).program
     t = time.time()
@@ -590,15 +742,40 @@ def main():
             raise AssertionError(f"kernel {name} never launched on the main path")
     if paths["main"]["wtape_run_plan_global"]:
         raise AssertionError("a main-path plan took the global-scratch kernel")
-    log("  launches of one warm prove by shape (blake2s: K, message words, n; "
+    log("  launches of one warm prove by shape (blake2s_leaves: K, message words, "
+        "n; blake2s_pyramid: digests of the level read, levels climbed; "
         "wtape: S, R, B, n_out, n):")
     for key, count in sorted(warm_shapes.items()):
         log(f"    {key[0]} {key[1:]}: {count}")
     log("  kernel table (this run): kernel ms, bound ms, launches per warm prove")
+    # a tree is one leaf launch and at most three pyramid launches
+    trees = {}
+    for key, count in warm_shapes.items():
+        if key[0] == "blake2s_leaves":
+            trees[key[3]] = trees.get(key[3], 0) + count
+    want_pyramid = sum(c * blake2s.pyramid_launches(n) for n, c in trees.items())
+    got_pyramid = sum(c for key, c in warm_shapes.items() if key[0] == "blake2s_pyramid")
+    log(f"  device trees of one warm prove by leaves: "
+        + ", ".join(f"2^{n.bit_length() - 1}: {c}" for n, c in sorted(trees.items()))
+        + f"; {sum(trees.values())} leaf launches, {got_pyramid} pyramid launches")
+    if got_pyramid != want_pyramid or max(map(blake2s.pyramid_launches, trees)) > 3:
+        raise AssertionError(f"{got_pyramid} pyramid launches, expected {want_pyramid}")
+    log(f"  the host hashed no top of these {sum(trees.values())} trees; at "
+        f"{top_s * 1e3:.2f} ms a top (phase 2) that was "
+        f"{sum(trees.values()) * top_s:.3f} s of host time a warm prove")
+    for m, row in table_p.items():
+        row["launches"] = trees.get(m, 0)
+        log(f"    blake2s pyramid m=2^{m.bit_length() - 1}: {row['ms']:.4f} ms "
+            f"({row['dev_ms']:.4f} ms queued), level-by-level route "
+            f"{row['old_ms']:.4f} ms ({row['old_queued_ms']:.4f} ms queued), bound "
+            f"{row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, trees of this "
+            f"size {row['launches']}")
     for (k, n), row in table_a.items():
         row["launches"] = sum(c for key, c in warm_shapes.items()
                               if key[0] == "blake2s_leaves" and key[2:] == (k, n))
-        log(f"    blake2s K={k} n=2^{n.bit_length() - 1}: {row['ms']:.4f} ms, bound "
+        log(f"    blake2s K={k} n=2^{n.bit_length() - 1}: {row['ms']:.4f} ms "
+            f"({row['dev_ms']:.4f} ms queued), bound "
             f"{row['bound_ms']:.5f} ms ({row['bound_by']}), plain "
             f"{row['plain_ms']:.4f} ms, launches {row['launches']}")
     for shape, row in table_b.items():
@@ -641,8 +818,8 @@ def main():
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
-                # no single PyTorch call computes BLAKE2s over column lanes
-                # or interprets an M31 tape
+                # no single PyTorch call computes BLAKE2s over column lanes,
+                # a Merkle pyramid, or interprets an M31 tape
                 "library_ms": None}
 
     main_b = next(r for r in table_b.values() if r["name"] == WTAPE_MAIN)
@@ -651,13 +828,17 @@ def main():
     summary = {"kernels": [
         entry("blake2s_leaves", "cairo_m_tpu_torch/csrc/blake2s_leaves.cu",
               "cairo_m_tpu/hash/blake2s_pallas.py:83", table_a[BLAKE2S_MAIN]),
+        # the whole pyramid above 2^20 leaf digests, all its launches
+        entry("blake2s_pyramid", "cairo_m_tpu_torch/csrc/blake2s_pyramid.cu",
+              "cairo_m_tpu/hash/blake2s_pallas.py:83", table_p[PYRAMID_MAIN]),
         entry("wtape_run_plan", wtape_cu, wtape_tpu, main_b),
         # the variant for register files beyond shared memory: no plan of
         # the prover needs it today, so it is held to plain on a synthetic
         # plan (phase 3) and launches 0 times on the main path
         entry("wtape_run_plan_global", wtape_cu, wtape_tpu, synthetic),
     ]}
-    log(f"timed shapes: blake2s K={BLAKE2S_MAIN[0]} n={BLAKE2S_MAIN[1]}; wtape "
+    log(f"timed shapes: blake2s K={BLAKE2S_MAIN[0]} n={BLAKE2S_MAIN[1]}; blake2s "
+        f"pyramid over {PYRAMID_MAIN} leaf digests (all its launches); wtape "
         f"{WTAPE_MAIN} n=2^20; wtape global: synthetic plan, 2000 bank rows, n=2^12")
     loaded = sorted(m for m, v in sys.modules.items()
                     if v is not None and m.split(".")[0] in ("jax", "cairo_m_tpu"))

@@ -19,7 +19,7 @@ from cairo_m_tpu_torch.prover.adapter.native_import import native_prover_input
 from cairo_m_tpu_torch.prover.components.registry import ComponentSet
 from cairo_m_tpu_torch.prover.prove import prove_cairo_m
 from cairo_m_tpu_torch.prover.relations import Relations
-from cairo_m_tpu_torch.prover.stark import framework, wtape
+from cairo_m_tpu_torch.prover.stark import framework, merkle, wtape
 from cairo_m_tpu_torch.prover.stark.air import logup_shift_scalar
 from torch_port_helpers import (FIB_SRC, P, constant_free_plan, proof_json,
                                 random_wide_plan, wide_sum_plan)
@@ -59,7 +59,8 @@ def fib40(cuda_device):
 
 
 @pytest.mark.parametrize(
-    "K,n", [(1, 32), (4, 1 << 12), (16, 1 << 16), (17, 1 << 10), (512, 1 << 8)]
+    "K,n", [(1, 32), (4, 1 << 12), (16, 1 << 16), (17, 1 << 10), (512, 1 << 8),
+            (1024, 32), (2048, 32)]
 )
 def test_blake2s_kernel_matches_plain(cuda_device, K, n):
     rng = np.random.default_rng(K)
@@ -72,6 +73,55 @@ def test_blake2s_kernel_matches_plain(cuda_device, K, n):
     want = torch.stack(blake2s.hash_words(list(cols)))
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def test_blake2s_kernel_writes_into_a_strided_out_view(cuda_device):
+    rng = np.random.default_rng(9)
+    cols = torch.from_numpy(
+        rng.integers(0, 1 << 32, size=(20, 1000), dtype=np.int64)
+    ).to(cuda_device)
+    packed = torch.full((8, 1999), -1, dtype=torch.int64, device=cuda_device)
+    blake2s.hash_leaves(cols, 32, out=packed[:, :1000])
+    torch.cuda.synchronize()
+    assert torch.equal(packed[:, :1000], blake2s.hash_leaves(cols.cpu(), 32).to(cuda_device))
+    assert bool((packed[:, 1000:] == -1).all())
+
+
+@pytest.mark.parametrize("tile", [None, 9, 11])
+@pytest.mark.parametrize("m", [2, 1 << 9, 1 << 10, 1 << 15, 1 << 19])
+def test_pyramid_kernel_matches_plain(cuda_device, m, tile):
+    """One launch per tile of levels; every level bit for bit."""
+    rng = np.random.default_rng(m)
+    packed = torch.zeros((8, 2 * m - 1), dtype=torch.int64, device=cuda_device)
+    packed[:, :m] = torch.from_numpy(
+        rng.integers(0, 1 << 32, size=(8, m), dtype=np.int64)
+    ).to(cuda_device)
+    want = blake2s.merkle_pyramid_plain(packed.clone())
+    before = dict(kernels.launches)
+    got = blake2s.merkle_pyramid(packed, tile)
+    torch.cuda.synchronize()
+    assert got is packed
+    n_launches = blake2s.pyramid_launches(m, tile)
+    assert kernels.launches["blake2s_pyramid"] == before["blake2s_pyramid"] + n_launches
+    assert sum(kernels.launches.values()) == sum(before.values()) + n_launches
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n_cols,log", [(3, 12), (16, 5), (453, 10), (2, 16)])
+def test_merkle_tree_on_the_card_equals_cpu_tree(cuda_device, n_cols, log):
+    rng = np.random.default_rng(n_cols + log)
+    cols = torch.from_numpy(rng.integers(0, P, size=(n_cols, 1 << log), dtype=np.int64))
+    positions = rng.integers(0, 1 << log, size=13).tolist()
+    before = dict(kernels.launches)
+    trees = [merkle.MerkleTree(c) for c in (cols.to(cuda_device), cols)]
+    assert kernels.launches["blake2s_leaves"] == before["blake2s_leaves"] + 1
+    assert kernels.launches["blake2s_pyramid"] == before[
+        "blake2s_pyramid"] + blake2s.pyramid_launches(1 << log)
+    assert trees[0].root() == trees[1].root()
+    assert torch.equal(trees[0].packed.cpu(), trees[1].packed)
+    decs = [merkle.finish_plans([merkle.DecommitPlan(t, positions)])[0] for t in trees]
+    assert decs[0].to_json_obj() == decs[1].to_json_obj()
+    assert merkle.verify_decommitment(trees[0].root(), log, n_cols, positions, decs[0])
 
 
 @pytest.mark.parametrize("kind", ["interaction", "composition"])
@@ -177,7 +227,8 @@ def test_cuda_proof_equals_cpu_proof(fib40, framing):
     kernels.reset_launches()
     cuda_proof = prove_cairo_m(pi, cfg, device="cuda")
     # the stwo trees are hashed on the host: only the wide-tape kernel runs
-    used = ["wtape_run_plan"] + (["blake2s_leaves"] if framing == "native" else [])
+    used = ["wtape_run_plan"] + (
+        ["blake2s_leaves", "blake2s_pyramid"] if framing == "native" else [])
     assert all(kernels.launches[k] > 0 for k in used), kernels.launches
     # every plan of the prover fits the shared-memory kernel
     assert kernels.launches["wtape_run_plan_global"] == 0
