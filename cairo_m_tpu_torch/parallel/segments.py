@@ -8,7 +8,11 @@ every worker process re-runs the (cheap, deterministic) native VM + adapter
 and proves segments ``proc_id, proc_id + N, ...`` independently on
 ``devices[proc_id % len(devices)]``, then verifies each of its proofs.
 Segment proofs share no state, so the only communication is the final
-collection; several workers may share one card.
+collection; several workers may share one card.  With
+``use_torch_distributed=True`` the workers also join one gloo process group
+on the coordinator's address and meet at a barrier before they exit (the
+counterpart of the reference's ``use_jax_distributed`` and its
+``sync_global_devices``); the proofs do not change.
 
 Chain integrity: the coordinator raises unless the segment set is complete
 and ``final_root(k) == initial_root(k+1)`` holds across every boundary.
@@ -34,10 +38,11 @@ def _worker_main(argv):
     import argparse
 
     ap = argparse.ArgumentParser()
-    # the coordinator's ephemeral port; segment proving needs no
-    # collectives, so no worker joins a process group on it (a
-    # torch.distributed group comes with row-sharding)
+    # the coordinator's address: ``localhost:<port>`` (the port the
+    # coordinator reserved) or ``file://<path>``; the workers join a gloo
+    # group there only under --torch-distributed
     ap.add_argument("--coordinator", required=True)
+    ap.add_argument("--torch-distributed", action="store_true")
     ap.add_argument("--num-procs", type=int, required=True)
     ap.add_argument("--proc-id", type=int, required=True)
     ap.add_argument("--workdir", required=True)
@@ -53,6 +58,14 @@ def _worker_main(argv):
     from ..prover.verify import verify_cairo_m
 
     device = resolve_device(args.device)
+    if args.torch_distributed:
+        import torch.distributed as dist
+
+        init = args.coordinator
+        if not init.startswith("file://"):
+            init = f"tcp://{init}"
+        dist.init_process_group("gloo", init_method=init, rank=args.proc_id,
+                                world_size=args.num_procs)
     with open(os.path.join(args.workdir, "job.json")) as f:
         spec = json.load(f)
     if spec.get("test_scale"):
@@ -92,6 +105,10 @@ def _worker_main(argv):
         )
     with open(os.path.join(args.workdir, f"proofs_{args.proc_id}.json"), "w") as f:
         json.dump(out, f)
+    if args.torch_distributed:
+        # every worker has written its proofs before any leaves the group
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 def check_chain(records):
@@ -124,12 +141,17 @@ def prove_segments_multiprocess(
     test_scale: dict = None,
     test_config: dict = None,
     timeout: int = 900,
+    use_torch_distributed: bool = False,
 ):
     """Launch N worker processes, worker ``i`` on
     ``devices[i % len(devices)]``; round-robin the continuation segments
     across them, collect the proofs, check the Poseidon2 root chain, and
     return the ordered per-segment records.  The default is the first card;
-    a worker whose device is a card that does not exist raises."""
+    a worker whose device is a card that does not exist raises.
+    ``use_torch_distributed``: the workers join one gloo process group at
+    the coordinator's address, a file store in the job's directory (a
+    reserved-then-closed port can be taken by another job before the group
+    binds it), and meet at a barrier before they exit."""
     if not devices:
         raise ValueError("prove_segments_multiprocess needs at least one device")
     with tempfile.TemporaryDirectory(prefix="cm_segments_") as workdir:
@@ -157,11 +179,15 @@ def prove_segments_multiprocess(
             subprocess.Popen(
                 [
                     sys.executable, "-m", "cairo_m_tpu_torch.parallel.segments",
-                    "--coordinator", f"localhost:{port}",
+                    "--coordinator", (
+                        "file://" + os.path.join(workdir, "store")
+                        if use_torch_distributed else f"localhost:{port}"
+                    ),
                     "--num-procs", str(n_processes),
                     "--proc-id", str(i),
                     "--workdir", workdir,
                     "--device", str(devices[i % len(devices)]),
+                    *(["--torch-distributed"] if use_torch_distributed else []),
                 ],
                 cwd=repo,
             )

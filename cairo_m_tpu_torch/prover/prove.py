@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..parallel.sharded import active_mesh, local_len, maybe_shard
 from .components.registry import ComponentSet
 from .config import REGULAR_96_BITS, SCALE
 from .public_data import PublicData
@@ -35,11 +36,12 @@ from .stark.fri import qscalar_add, qscalar_inv, qscalar_mul, qscalar_sub
 
 P = (1 << 31) - 1
 
-# (device, scale key, blowup, framing) -> CommitmentPhase of the
+# (device, scale key, blowup, framing, mesh key) -> CommitmentPhase of the
 # preprocessed tables
 _PRE_PHASE_CACHE: dict = {}
-# (device, comp name, scale key) -> row-order device stack of the
-# component's preprocessed columns (rc enumerations, bitwise tables)
+# (device, comp name, scale key, mesh key) -> row-order device stack of the
+# component's preprocessed columns (rc enumerations, bitwise tables); FFT
+# order, and this rank's share, under a row mesh
 _PRE_STACK_CACHE: dict = {}
 
 
@@ -78,19 +80,33 @@ def upload_rows(rows, device) -> torch.Tensor:
     return torch.from_numpy(st).to(device).long()
 
 
+def upload_fft_share(rows, device) -> torch.Tensor:
+    """Under a row mesh (parallel/sharded.py): row-order NumPy rows -> this
+    rank's cyclic share of the FFT-order stack (the whole stack where the
+    domain is too small to split), reordered and cut on the host so that
+    only the share crosses to the device."""
+    return upload_rows(maybe_shard(domain.to_fft_order(np.stack(rows))), device)
+
+
+def _mesh_key():
+    mesh = active_mesh()
+    return None if mesh is None else mesh.key()
+
+
 def preprocessed_phase(comps: ComponentSet, config, device):
     """The commitment phase of the preprocessed tables (proof-independent,
-    so cached per (device, protocol scale, blowup, framing))."""
+    so cached per (device, protocol scale, blowup, framing, row mesh))."""
     blowup = config.fri_config.log_blowup_factor
-    key = (str(device), SCALE.key(), blowup, config.framing)
+    key = (str(device), SCALE.key(), blowup, config.framing, _mesh_key())
     cached = _PRE_PHASE_CACHE.get(key)
     if cached is None:
         pre_cols, _ = comps.preprocessed_columns()
-        cached = pcs.CommitmentPhase(
-            [(l, domain.to_fft_order(upload_rows([c], device))) for l, c in pre_cols],
-            blowup,
-            framing=config.framing,
-        )
+        if active_mesh() is None:
+            cols = [(l, domain.to_fft_order(upload_rows([c], device)))
+                    for l, c in pre_cols]
+        else:
+            cols = [(l, upload_fft_share([c], device)) for l, c in pre_cols]
+        cached = pcs.CommitmentPhase(cols, blowup, framing=config.framing)
         _PRE_PHASE_CACHE.clear()  # hold at most one scale's tables
         _PRE_PHASE_CACHE[key] = cached
     return cached
@@ -140,8 +156,19 @@ def build_sample_points(comps: ComponentSet, z, z_prevs, pre_owners):
 def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
                   device=DEFAULT_DEVICE):
     """Prove ``prover_input`` on ``device`` (a torch device or its name; the
-    card unless the caller names another, and an error without one)."""
+    card unless the caller names another, and an error without one).
+
+    Under ``prover_mesh`` (parallel/sharded.py) this rank proves on its
+    share of every stack, on the mesh's device; every rank returns the
+    same proof, byte-equal to the single-device proof."""
     device = resolve_device(device)
+    mesh = active_mesh()
+    if mesh is not None and device != mesh.device:
+        raise ValueError(f"device {device}, but this rank's mesh runs on "
+                         f"{mesh.device}")
+    # under a mesh every stack is held in FFT order (this rank's share):
+    # the row-order -> FFT-order steps below are the single device's
+    to_fft = domain.to_fft_order if mesh is None else (lambda st: st)
     t0 = time.time()
     channel = config.make_channel()
     config.mix_into(channel)
@@ -164,7 +191,10 @@ def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
             return
         if comp.zero_witness:
             return
-        st = upload_rows(comp.trace_rows, device)
+        if mesh is None:
+            st = upload_rows(comp.trace_rows, device)
+        else:
+            st = upload_fft_share(comp.trace_rows, device)
         uploaded[id(comp)] = st
         counter.add(comp, st)
 
@@ -183,8 +213,8 @@ def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
         channel.mix_u64(comp.log_size)
     trace_stacks = [
         torch.zeros(
-            (comp.n_trace_cols, 1 << comp.log_size), dtype=torch.int64,
-            device=device,
+            (comp.n_trace_cols, local_len(1 << comp.log_size)),
+            dtype=torch.int64, device=device,
         )
         if comp.zero_witness
         else uploaded[id(comp)]
@@ -192,10 +222,7 @@ def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
     ]
     scheme.commit(
         [
-            (
-                comp.log_size,
-                st if comp.zero_witness else domain.to_fft_order(st),
-            )
+            (comp.log_size, st if comp.zero_witness else to_fft(st))
             for comp, st in zip(comps.all, trace_stacks)
         ]
     )
@@ -216,27 +243,31 @@ def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
             # numerators are products with all-zero trace columns, so every
             # fraction, prefix column and the claimed sum are identically 0
             stacked = torch.zeros(
-                (4 * comp.n_interaction_cols(), n), dtype=torch.int64,
-                device=device,
+                (4 * comp.n_interaction_cols(), local_len(n)),
+                dtype=torch.int64, device=device,
             )
             zero_claims.add(ci)
             inter_entries.append((comp.log_size, stacked))
             continue
         if comp.n_preprocessed_cols:
-            ps_key = (str(device), comp.name, SCALE.key())
+            ps_key = (str(device), comp.name, SCALE.key(), _mesh_key())
             pre_stack = _PRE_STACK_CACHE.get(ps_key)
             if pre_stack is None:
                 if len(_PRE_STACK_CACHE) > 64:
                     _PRE_STACK_CACHE.clear()
-                pre_stack = upload_rows(comp.preprocessed_columns(), device)
+                if mesh is None:
+                    pre_stack = upload_rows(comp.preprocessed_columns(), device)
+                else:
+                    pre_stack = upload_fft_share(comp.preprocessed_columns(), device)
                 _PRE_STACK_CACHE[ps_key] = pre_stack
         else:
-            pre_stack = torch.zeros((0, n), dtype=torch.int64, device=device)
+            pre_stack = torch.zeros((0, local_len(n)), dtype=torch.int64,
+                                    device=device)
         stacked, claimed = framework.gen_interaction_trace_device(
             comp, st, pre_stack
         )
         claimed_dev.append(claimed)
-        inter_entries.append((comp.log_size, domain.to_fft_order(stacked)))
+        inter_entries.append((comp.log_size, to_fft(stacked)))
     # one batched device->host pull for every non-zero component's sum
     claimed_np = (
         torch.stack(claimed_dev).cpu().numpy()

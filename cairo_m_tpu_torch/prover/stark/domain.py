@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ...field import m31
+from ...parallel import sharded
 
 P = (1 << 31) - 1
 M31_CIRCLE_LOG_ORDER = 31
@@ -203,9 +204,14 @@ def _bitrev_dev(log_size: int, device: torch.device) -> torch.Tensor:
 
 
 def bit_reverse(v, log_size: int):
-    """Permute the LAST axis by bit reversal (involution): one gather."""
+    """Permute the LAST axis by bit reversal (involution): one gather.
+
+    A cyclic FFT-order share of a row mesh (parallel/sharded.py) becomes
+    its rank's commit-order block by a bit reversal of the local index."""
     if isinstance(v, np.ndarray):
         return v[..., bitrev_indices(log_size)]
+    if sharded.is_share(v, log_size):
+        log_size -= sharded.active_mesh().log_ws
     return v.index_select(-1, _bitrev_dev(log_size, v.device))
 
 

@@ -10,6 +10,10 @@ Coefficients come out in the circle-FFT basis
 y-bit as the index MSB and deeper pi-powers toward the LSB, so a size-2^L
 coefficient vector embeds into a size-2^L' one at indices ``i << (L' - L)``.
 
+Under a row mesh (parallel/sharded.py) `ifft` takes a cyclic share of
+FFT-order evaluations and returns the block share of the coefficients,
+`fft` the reverse, and `eval_at_qpoint_folds` adds the ranks' partial sums.
+
 The TPU package splits large transforms into a two-stage transposed layout
 and pads the batch axis around it (``_pad_lead``); both work around TPU lane
 width and an XLA TPU miscompile and are not carried over: every level here
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from ...field import m31
+from ...parallel import sharded
 from . import domain
 
 P = (1 << 31) - 1
@@ -45,7 +50,8 @@ def ifft(values, log_size: int, itw=None):
     """
     v = values
     n = 1 << log_size
-    assert v.shape[-1] == n
+    if sharded.is_share(v, log_size):
+        return _ifft_share(v, log_size)
     if itw is None:
         itw = twiddles_dev(log_size, True, v.device)
     lead = tuple(v.shape[:-1])
@@ -66,7 +72,8 @@ def fft(coeffs, log_size: int, tw=None):
     """Coefficients -> evaluations (..., 2^log_size) in FFT order."""
     v = coeffs
     n = 1 << log_size
-    assert v.shape[-1] == n
+    if sharded.is_share(v, log_size):
+        return _fft_share(v, log_size)
     if tw is None:
         tw = twiddles_dev(log_size, False, v.device)
     lead = tuple(v.shape[:-1])
@@ -80,16 +87,84 @@ def fft(coeffs, log_size: int, tw=None):
 
 
 def embed_coeffs(coeffs, log_size: int, eval_log_size: int):
-    """Embed a coefficient vector into the bigger basis (index << gap)."""
+    """Embed a coefficient vector into the bigger basis (index << gap).
+
+    Under a row mesh a block share embeds into the block share of the
+    bigger basis in place (block r of both holds the same indices' images),
+    and a whole vector whose image is split keeps this rank's block."""
     gap = eval_log_size - log_size
     assert gap >= 0
     if gap == 0:
         return coeffs
     lead = tuple(coeffs.shape[:-1])
-    n = 1 << log_size
+    n = int(coeffs.shape[-1])
     big = coeffs.new_zeros(lead + (n, 1 << gap))
     big[..., 0] = coeffs
-    return big.reshape(lead + (1 << eval_log_size,))
+    big = big.reshape(lead + (n << gap,))
+    if not sharded.is_share(coeffs, log_size):
+        big = sharded.block_share(big)
+    return big
+
+
+# ---------------------------------------------------------------------------
+# Row-sharded transforms (parallel/sharded.py: evaluations in cyclic shares,
+# coefficients in block shares)
+# ---------------------------------------------------------------------------
+
+
+def _ifft_share(v, log_size: int):
+    """`ifft` of a cyclic FFT-order share -> the coefficients' block share.
+    Levels that pair lanes at a distance >= D run on the cyclic share with
+    every D-th twiddle; one all-to-all turns it into blocks, in which the
+    last log2(D) levels are local."""
+    mesh = sharded.active_mesh()
+    D, d = mesh.world_size, mesh.log_ws
+    n = 1 << log_size
+    nl = n // D
+    itw = twiddles_dev(log_size, True, v.device)
+    lead = tuple(v.shape[:-1])
+    for j in range(log_size - d):
+        half = (n >> (j + 1)) // D
+        v = v.reshape(lead + (1 << j, 2, half))
+        a = v[..., 0, :]
+        b = v[..., 1, :]
+        f1 = m31.mul(m31.sub(a, b), sharded.cyclic_slice(itw[j]))
+        v = torch.stack([m31.add(a, b), f1], dim=-2)
+    v = sharded.cyclic_to_block(v.reshape(lead + (nl,)))
+    for j in range(log_size - d, log_size):
+        half = n >> (j + 1)
+        v = v.reshape(lead + (nl // (2 * half), 2, half))
+        a = v[..., 0, :]
+        b = v[..., 1, :]
+        f1 = m31.mul(m31.sub(a, b), itw[j])
+        v = torch.stack([m31.add(a, b), f1], dim=-2)
+    scale = pow((P + 1) // 2, log_size, P)
+    return m31.mul(v.reshape(lead + (nl,)), scale)
+
+
+def _fft_share(v, log_size: int):
+    """`fft` of a block share of coefficients -> the evaluations' cyclic
+    FFT-order share (the mirror of `_ifft_share`)."""
+    mesh = sharded.active_mesh()
+    D, d = mesh.world_size, mesh.log_ws
+    n = 1 << log_size
+    nl = n // D
+    tw = twiddles_dev(log_size, False, v.device)
+    lead = tuple(v.shape[:-1])
+    for j in range(log_size - 1, log_size - d - 1, -1):
+        half = n >> (j + 1)
+        v = v.reshape(lead + (nl // (2 * half), 2, half))
+        a = v[..., 0, :]
+        b = m31.mul(v[..., 1, :], tw[j])
+        v = torch.stack([m31.add(a, b), m31.sub(a, b)], dim=-2)
+    v = sharded.block_to_cyclic(v.reshape(lead + (nl,)))
+    for j in range(log_size - d - 1, -1, -1):
+        half = (n >> (j + 1)) // D
+        v = v.reshape(lead + (1 << j, 2, half))
+        a = v[..., 0, :]
+        b = m31.mul(v[..., 1, :], sharded.cyclic_slice(tw[j]))
+        v = torch.stack([m31.add(a, b), m31.sub(a, b)], dim=-2)
+    return v.reshape(lead + (nl,))
 
 
 def lde(values_fft_order, log_size: int, eval_log_size: int):
@@ -131,14 +206,28 @@ def eval_at_qpoint_folds(coeffs, log_size: int, tws):
     `point_eval_twiddles_host`.  Returns a QM31 limb tuple of shape (...,)."""
     from ...field.qm31 import qadd, qmul
 
-    n = 1 << log_size
-    assert coeffs.shape[-1] == n
+    share = sharded.is_share(coeffs, log_size)
+    local_log = log_size - (sharded.active_mesh().log_ws if share else 0)
     z = torch.zeros_like(coeffs)
     v = (coeffs, z, z, z)
-    for j in range(log_size - 1, -1, -1):
+    for j in range(local_log - 1, -1, -1):
         half = v[0].shape[-1] // 2
         a = tuple(c[..., :half] for c in v)
         b = tuple(c[..., half:] for c in v)
         t = tuple(int(tws[j, k]) for k in range(4))
         v = qadd(a, qmul(b, t))
-    return tuple(c[..., 0] for c in v)
+    v = tuple(c[..., 0] for c in v)
+    if not share:
+        return v
+    # a block share (parallel/sharded.py): block r holds the indices whose
+    # high log2(D) bits are r, so its partial sum carries the product of the
+    # twiddles of those bits; the ranks' partial sums add up mod P
+    from .fri import QONE, qscalar_mul
+
+    r = sharded.active_mesh().rank
+    f = QONE
+    for j in range(local_log, log_size):
+        if (r >> (j - local_log)) & 1:
+            f = qscalar_mul(f, tuple(int(tws[j, k]) for k in range(4)))
+    v = qmul(v, f)
+    return tuple(sharded.psum_mod(torch.stack(v)).unbind(0))

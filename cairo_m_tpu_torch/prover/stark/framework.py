@@ -31,6 +31,7 @@ import torch
 
 from ...field import m31
 from ...field.qm31 import qinv, qinv_np, qmul, qmul_np
+from ...parallel import sharded
 from . import domain, fft
 from .air import (
     Component,
@@ -253,11 +254,26 @@ def _logup_prefix(outs, E: int, n: int):
 
 def _logup_last(row_total, log_size: int):
     """(4, n) row totals -> (shifted cumulative last column (4, n),
-    claimed sum (4,))."""
-    inv2n = pow(1 << log_size, P - 2, P)
+    claimed sum (4,)).
+
+    Under a row mesh the row totals are in FFT order (parallel/sharded.py):
+    a cyclic share sums to the global total with `psum_mod` and takes its
+    prefix sums along the rows with `row_cumsum_mod`; a whole domain goes
+    to row order and back."""
+    n = 1 << log_size
+    inv2n = pow(n, P - 2, P)
     total = m31.sum_mod(row_total, dim=1)
+    mesh = sharded.active_mesh()
+    share = sharded.is_share(row_total, log_size)
+    if share:
+        total = sharded.psum_mod(total)
     shift = m31.mul(total, inv2n)
     shifted = m31.sub(row_total, shift[:, None])
+    if share:
+        return sharded.row_cumsum_mod(shifted, n), total
+    if mesh is not None:
+        rows = torch.cumsum(domain.from_fft_order(shifted), dim=1) % P
+        return domain.to_fft_order(rows), total
     return torch.cumsum(shifted, dim=1) % P, total
 
 
@@ -265,8 +281,10 @@ def gen_interaction_trace_device(comp, trace_stack, pre_stack):
     """Device path of gen_interaction_trace.
 
     ``trace_stack``/``pre_stack``: (k, 2^log_size) int64 device stacks of
-    the component's trace / preprocessed rows (row order).
-    -> (stacked interaction limb columns (4*n_pairs, n) device,
+    the component's trace / preprocessed rows (row order; FFT order, and
+    this rank's share where the domain is split, under a row mesh).
+    -> (stacked interaction limb columns (4*n_pairs, n) device, in the
+        stacks' order,
         claimed_sum (4,) device tensor — NOT pulled to host here, so callers
         can batch all components' sums into one transfer).
     """
@@ -282,14 +300,16 @@ def gen_interaction_trace_device(comp, trace_stack, pre_stack):
         sh[j] = off % n
     consts = plan.const_values(_DynResolver(comp.relations))
     outs = run_wide(
-        (trace_stack, pre_stack), src, sh, consts, plan, l, fft_order=False
+        (trace_stack, pre_stack), src, sh, consts, plan, l,
+        fft_order=sharded.active_mesh() is not None,
     )
-    prefix = _logup_prefix(outs, Epad, n)
+    nl = int(outs.shape[-1])
+    prefix = _logup_prefix(outs, Epad, nl)
     n_pairs = (E + 1) // 2
     last, total = _logup_last(prefix[n_pairs - 1], l)
     # stacked interaction limb columns: pair0 limb0-3, pair1 limb0-3, ...
     stacked = torch.cat(
-        [prefix[: n_pairs - 1].reshape((n_pairs - 1) * 4, n), last], dim=0
+        [prefix[: n_pairs - 1].reshape((n_pairs - 1) * 4, nl), last], dim=0
     )
     return stacked, total
 
@@ -415,15 +435,24 @@ class TableCounter:
         self.touched = [False] * 4
 
     def add(self, comp, trace_stack):
-        """Fold one non-zero-witness component's table consumptions in."""
+        """Fold one non-zero-witness component's table consumptions in.
+
+        Under a row mesh each rank counts its share of the lanes (FFT
+        order); a domain every rank holds whole is counted by rank 0."""
         plan, meta = table_count_plan(comp, self.relations)
         if not meta:
+            return
+        mesh = sharded.active_mesh()
+        if (mesh is not None and mesh.rank
+                and not sharded.is_share(trace_stack, comp.log_size)):
+            for nm in set(meta):
+                self.touched[_TCOUNT_TABLES.index(nm)] = True
             return
         for nm in set(meta):
             self.touched[_TCOUNT_TABLES.index(nm)] = True
         n = 1 << comp.log_size
         assert not comp.n_preprocessed_cols, comp.name
-        pre_stack = trace_stack.new_zeros((0, n))
+        pre_stack = trace_stack.new_zeros((0, trace_stack.shape[-1]))
         src = np.zeros(len(plan.used_bank), np.int64)
         sh = np.zeros(len(plan.used_bank), np.int64)
         kt = int(trace_stack.shape[0])
@@ -433,16 +462,26 @@ class TableCounter:
         consts = plan.const_values(_DynResolver(self.relations))
         outs = run_wide(
             (trace_stack, pre_stack), src, sh, consts, plan,
-            comp.log_size, fft_order=False,
+            comp.log_size, fft_order=mesh is not None,
         )
         _tcount(meta, outs, self.acc)
 
     def finalize(self):
-        """-> (mult column per table (device, (n,) int64), touched flags)."""
-        for acc in self.acc:
-            if int(acc.max()) >= P:
+        """-> (mult column per table (device, (n,) int64), touched flags).
+
+        Under a row mesh the ranks' histograms are summed first (one
+        all-reduce each) and each column is returned as the uploads are: in
+        FFT order, this rank's share where the domain is split."""
+        acc = self.acc
+        if sharded.active_mesh() is not None:
+            acc = [sharded.psum(a) for a in acc]
+        for a in acc:
+            if int(a.max()) >= P:
                 raise OverflowError("table multiplicity count reached P")
-        return tuple(self.acc), tuple(self.touched)
+        if sharded.active_mesh() is not None:
+            acc = [sharded.maybe_shard(domain.to_fft_order(a)).contiguous()
+                   for a in acc]
+        return tuple(acc), tuple(self.touched)
 
 
 # ---------------------------------------------------------------------------
@@ -537,8 +576,11 @@ def composition_plan(comp, relations):
 
 def _evals_to_coeffs(evals, elog: int, max_elog: int):
     """Row-order 4-limb evaluations on the 2^elog domain -> coefficients
-    embedded in the 2^max_elog basis, as one (4, n) batched transform."""
-    stacked = domain.to_fft_order(torch.stack(evals))
+    embedded in the 2^max_elog basis, as one (4, n) batched transform.
+    Under a row mesh the evaluations are already in FFT order."""
+    stacked = torch.stack(evals)
+    if sharded.active_mesh() is None:
+        stacked = domain.to_fft_order(stacked)
     co = fft.embed_coeffs(fft.ifft(stacked, elog), elog, max_elog)
     return tuple(co[k] for k in range(4))
 
@@ -591,7 +633,7 @@ def compute_composition(
         iext = inter_phase.stacked_ext[elog]
         pext = pre_phase.stacked_ext.get(elog)
         if pext is None:
-            pext = text.new_zeros((0, n))
+            pext = text.new_zeros((0, text.shape[-1]))
         Kt, Ki, Kp = int(text.shape[0]), int(iext.shape[0]), int(pext.shape[0])
         pre_start = pre_owner_map.get(id(comp), (0, 0))[0]
         roll = 1 << blowup
@@ -610,7 +652,8 @@ def compute_composition(
             else:  # vanishing inverse row
                 src[j] = Kt + Ki + Kp
             sh[j] = (roll * offset) % n
-        vrow = _vanishing_row(l, elog, text.device)
+        # the cached row is whole; under a row mesh this rank's share
+        vrow = sharded.maybe_shard(_vanishing_row(l, elog, text.device))
         out = run_wide((text, iext, pext, vrow), src, sh, consts, plan, elog)
         contrib = tuple(out[k] for k in range(4))
         after = sum(counts[i + 1 :])

@@ -38,6 +38,7 @@ import torch
 
 from ...field import m31
 from ...field.qm31 import qadd, qmul, qmul_m31, qmul_np
+from ...parallel import sharded
 from . import domain, merkle, stwo_merkle
 
 P = (1 << 31) - 1
@@ -305,25 +306,31 @@ class FriProver:
         a0sq = qscalar_mul(alpha0, alpha0)
         top = torch.stack([torch.stack(c) for c in by_log[self.max_log]])
         device = top.device
-        y_inv = _fri_tw_dev(self.max_log, 0, device)
+        # under a row mesh (parallel/sharded.py) a layer is a cyclic share:
+        # the fold pairs (u, u + n/2) stay on one rank and meet every D-th
+        # twiddle
+        y_inv = sharded.share_of(_fri_tw_dev(self.max_log, 0, device), top,
+                                 self.max_log)
         layer = _first_fold(top, y_inv, a0sq, alpha0)  # (4, n/2)
         k = self.max_log - 1
         on_host = False
         while k > last:
             if not on_host and k <= _FRI_HOST_LOG:
-                layer = layer.cpu().numpy().astype(np.uint32)  # ONE pull
+                # ONE pull
+                layer = sharded.whole(layer, k).cpu().numpy().astype(np.uint32)
                 on_host = True
             # layers live in NATURAL (fft) order; each commit bit-reverses
             # its own copy so the committed bytes stay protocol-identical
             commit_layer = domain.bit_reverse(layer, k)
             if framing == "stwo":
                 if not on_host:
+                    commit_layer = sharded.whole_commit(commit_layer, k)
                     commit_layer = commit_layer.to(torch.int32).cpu().numpy()
                 t = time.perf_counter()
                 tree = stwo_merkle.StwoMerkleTree(list(commit_layer))
                 self.host_tree_s += time.perf_counter() - t
             else:
-                tree = merkle.commit(commit_layer)
+                tree = merkle.commit(commit_layer, log_size=k)
             self.inner_trees.append((k, tree))
             channel.mix_root(tree.root())
             alpha = channel.draw_felt()
@@ -337,7 +344,7 @@ class FriProver:
                     y_inv_np = _fri_tw_nat_np(k, 0)
                     # one pull for all entering columns (vs 4 per column)
                     pulled = (
-                        torch.stack([torch.stack(c) for c in fold_in])
+                        sharded.whole(torch.stack([torch.stack(c) for c in fold_in]), k)
                         .cpu().numpy().astype(np.uint32)
                     )
                     cols = [
@@ -354,18 +361,22 @@ class FriProver:
                     )
                 layer = np.stack(folded)
             else:
-                x_inv = _fri_tw_dev(self.max_log, self.max_log - k, device)
+                x_inv = sharded.share_of(
+                    _fri_tw_dev(self.max_log, self.max_log - k, device), layer, k
+                )
                 extra = None
                 if fold_in:
                     asq = qscalar_mul(alpha, alpha)
                     stack = torch.stack([torch.stack(c) for c in fold_in])
-                    extra = (stack, _fri_tw_dev(k, 0, device), asq)
+                    extra = (stack,
+                             sharded.share_of(_fri_tw_dev(k, 0, device), stack, k),
+                             asq)
                 layer = _fold_line(layer, x_inv, alpha, extra)
             k -= 1
 
         # last layer is sent in commit order (the verifier's convention)
         if not on_host:
-            layer = layer.cpu().numpy()
+            layer = sharded.whole(layer, k).cpu().numpy()
         host = domain.bit_reverse(np.asarray(layer), last)
         self.last_layer = [
             tuple(int(host[j][i]) for j in range(4))

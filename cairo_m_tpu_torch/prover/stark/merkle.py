@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ...hash import blake2s
+from ...parallel import sharded
 
 
 def _pad_cols(k: int) -> int:
@@ -66,17 +67,28 @@ class MerkleTree:
     on the host: levels == [], host_base == 0 and host_chain covers every
     level (the FRI tail layers)."""
 
-    def __init__(self, columns, defer_top: bool = False):
+    def __init__(self, columns, defer_top: bool = False, log_size: int = None):
         """columns: a stacked (n_cols, n) NumPy array or int64 tensor.
 
         ``defer_top=True``: don't pull the top levels yet — the caller
         batches many trees' `top_dev` into ONE device->host transfer and
-        calls `finish_host` on each."""
+        calls `finish_host` on each.
+
+        ``log_size``: the tree's size.  Under a row mesh
+        (parallel/sharded.py) a tensor of fewer than 2^log_size lanes is
+        this rank's commit-order block: the rank builds the subtree over
+        it, and the levels from `host_base` up are gathered from every rank
+        (`finish_host_shared`) and finished on the host."""
         stacked = columns
         n_cols, n = int(stacked.shape[0]), int(stacked.shape[1])
         self.columns = stacked
         self.log_size = n.bit_length() - 1
         assert 1 << self.log_size == n
+        # (commit block, log of the block) of a tree split over a row mesh
+        self.share = None
+        if log_size is not None and sharded.is_share(stacked, log_size):
+            self.share = (sharded.commit_block(), self.log_size)
+            self.log_size = log_size
         kp = _pad_cols(n_cols)
         self.levels = []  # views of the packed device pyramid, leaves first
         self.host_base = 0
@@ -97,14 +109,18 @@ class MerkleTree:
         )
         blake2s.hash_leaves(stacked.contiguous(), kp, out=self.packed[:, :n])
         blake2s.merkle_pyramid(self.packed)
-        offs = [blake2s.pyramid_offset(n, l) for l in range(self.log_size + 2)]
+        local_log = n.bit_length() - 1
+        offs = [blake2s.pyramid_offset(n, l) for l in range(local_log + 2)]
         self.levels = [self.packed[:, a:b] for a, b in zip(offs, offs[1:])]
         # the mirrored levels are the pyramid's last columns
         self.host_base = max(self.log_size - _HOST_TOP_LOG, 0)
+        assert self.host_base <= local_log
         self.top_dev = self.packed[:, blake2s.pyramid_offset(n, self.host_base) :]
         if defer_top:
             self.host_chain = None  # caller batch-pulls and finish_host()es
             self._root = None
+        elif self.share is not None:
+            self.finish_host_shared(sharded.all_gather(self.top_dev).cpu().numpy())
         else:
             self.finish_host(self.top_dev.cpu().numpy())
 
@@ -121,12 +137,32 @@ class MerkleTree:
             m //= 2
         self._root = self.host_chain[-1][0].astype("<u4").tobytes()
 
+    def finish_host_shared(self, tops: np.ndarray):
+        """Mirror the upper levels of a tree split over a row mesh from
+        every rank's `top_dev` ((D, 8, 2m - 1), rank order): each level
+        from `host_base` to the subtree roots is the ranks' pieces in
+        commit-block order, and the top log2(D) levels are hashed here, the
+        same on every rank."""
+        D = int(tops.shape[0])
+        bits = D.bit_length() - 1
+        by_block = [tops[sharded.bitrev_bits(b, bits)] for b in range(D)]
+        m = (int(tops.shape[2]) + 1) // 2
+        self.host_chain = []
+        off = 0
+        while m >= 1:
+            level = np.concatenate([t[:, off : off + m] for t in by_block], axis=1)
+            self.host_chain.append(np.ascontiguousarray(level.astype(np.uint32).T))
+            off += m
+            m //= 2
+        self.host_chain += _host_inner_levels(self.host_chain[-1])
+        self._root = self.host_chain[-1][0].astype("<u4").tobytes()
+
     def root(self) -> bytes:
         return self._root
 
 
-def commit(columns) -> MerkleTree:
-    return MerkleTree(columns)
+def commit(columns, log_size: int = None) -> MerkleTree:
+    return MerkleTree(columns, log_size=log_size)
 
 
 @dataclass
@@ -166,6 +202,8 @@ class DecommitPlan:
         host_tree = not tree.levels
         if host_tree:
             parts = [np.take(tree.columns, self.positions, axis=1).reshape(-1)]
+        elif tree.share is not None:
+            parts = [self._owned_values(tree)]
         else:
             dev = tree.columns.device
             pos = torch.tensor(self.positions, dtype=torch.int64, device=dev)
@@ -199,16 +237,61 @@ class DecommitPlan:
             self.flat = None
             self.host_flat = parts[0]
         else:
-            if sib_idx:
+            if tree.share is not None and sib_idx:
+                parts.append(self._owned_siblings(tree, sib_idx))
+            elif sib_idx:
                 idx = torch.tensor(sib_idx, dtype=torch.int64, device=dev)
                 # one gather for all device levels; (S, 8) word-major per
                 # digest
                 parts.append(tree.packed.index_select(1, idx).T.reshape(-1))
             self.flat = torch.cat(parts) if len(parts) > 1 else parts[0]
             self.host_flat = None
+            mesh = sharded.active_mesh()
+            if mesh is not None and tree.share is None and mesh.rank:
+                # every rank holds this whole tree; rank 0's copy is read
+                self.flat = torch.zeros_like(self.flat)
         self.size = int(
             (self.host_flat if self.flat is None else self.flat).shape[0]
         )
+
+    def _owned_values(self, tree) -> torch.Tensor:
+        """Opened values of a tree split over a row mesh, in the whole
+        tree's order, with the entries of other ranks' blocks left 0."""
+        block, local_log = tree.share
+        nl = 1 << local_log
+        dev = tree.columns.device
+        mine = [j for j, p in enumerate(self.positions) if p >> local_log == block]
+        vals = torch.zeros((self.n_cols, len(self.positions)), dtype=torch.int64,
+                           device=dev)
+        if mine:
+            local = torch.tensor([self.positions[j] - block * nl for j in mine],
+                                 dtype=torch.int64, device=dev)
+            vals[:, torch.tensor(mine, device=dev)] = tree.columns.index_select(1, local)
+        return vals.reshape(-1)
+
+    def _owned_siblings(self, tree, sib_idx) -> torch.Tensor:
+        """Device-level siblings of a split tree, (S, 8) word-major, those of
+        other ranks' blocks left 0.  ``sib_idx`` are offsets into the whole
+        tree's packed pyramid; below the subtree roots each node lies in one
+        block."""
+        block, local_log = tree.share
+        n, nl = 1 << tree.log_size, 1 << local_log
+        dev = tree.packed.device
+        mine, local = [], []
+        lvl = 0
+        for j, off in enumerate(sib_idx):
+            while off >= blake2s.pyramid_offset(n, lvl + 1):
+                lvl += 1
+            node = off - blake2s.pyramid_offset(n, lvl)
+            width = nl >> lvl
+            if node // width == block:
+                mine.append(j)
+                local.append(blake2s.pyramid_offset(nl, lvl) + node % width)
+        sibs = torch.zeros((len(sib_idx), 8), dtype=torch.int64, device=dev)
+        if mine:
+            idx = torch.tensor(local, dtype=torch.int64, device=dev)
+            sibs[torch.tensor(mine, device=dev)] = tree.packed.index_select(1, idx).T
+        return sibs.reshape(-1)
 
     def finish(self, host_flat: np.ndarray) -> MerkleDecommitment:
         n_pos = len(self.positions)
@@ -234,11 +317,13 @@ def finish_plans(plans: list) -> list:
     if not plans:
         return []
     dev_plans = [p for p in plans if p.flat is not None]
-    host = (
-        torch.cat([p.flat for p in dev_plans]).cpu().numpy()
-        if dev_plans
-        else None
-    )
+    host = None
+    if dev_plans:
+        flat = torch.cat([p.flat for p in dev_plans])
+        if sharded.active_mesh() is not None:
+            # every entry comes from the one rank that holds it
+            flat = sharded.psum_owned(flat)
+        host = flat.cpu().numpy()
     out = []
     off = 0
     for p in plans:

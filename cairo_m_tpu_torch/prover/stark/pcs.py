@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from .channel import Blake2sChannel
+from ...parallel import sharded
 from .stwo_channel import StwoBlake2sChannel
 
 from . import domain, fft, fri, merkle, quotients, stwo_merkle
@@ -118,7 +119,9 @@ class CommitmentPhase:
             if framing == "stwo":
                 stacked_commit[cl] = commit_cols
             else:
-                self.trees[cl] = merkle.MerkleTree(commit_cols, defer_top=True)
+                self.trees[cl] = merkle.MerkleTree(
+                    commit_cols, defer_top=True, log_size=cl
+                )
         # host seconds spent building the stwo tree; a proof adds them to
         # its own count once (`CommitmentSchemeProver.commit_phase`)
         self.host_tree_s = 0.0
@@ -129,20 +132,34 @@ class CommitmentPhase:
         # device; the host only mirrors them)
         logs = sorted(self.trees, reverse=True)
         if logs:
-            tops = (
-                torch.cat([self.trees[cl].top_dev for cl in logs], dim=1)
-                .cpu().numpy()
-            )
+            tops = torch.cat([self.trees[cl].top_dev for cl in logs], dim=1)
+            if sharded.active_mesh() is None:
+                tops = tops.cpu().numpy()
+            else:
+                # every rank's tops, rank order: the split trees' subtree
+                # tops are finished together, whole trees from rank 0's copy
+                tops = sharded.all_gather(tops).cpu().numpy()
             off = 0
             for cl in logs:
-                m = int(self.trees[cl].top_dev.shape[1])
-                self.trees[cl].finish_host(tops[:, off : off + m])
+                tree = self.trees[cl]
+                m = int(tree.top_dev.shape[1])
+                if tops.ndim == 2:
+                    tree.finish_host(tops[:, off : off + m])
+                elif tree.share is None:
+                    tree.finish_host(tops[0, :, off : off + m])
+                else:
+                    tree.finish_host_shared(tops[:, :, off : off + m])
                 off += m
 
     def _stwo_tree(self, stacked_commit, log_blowup: int):
         """ONE device->host pull of every commit-order stack, then one
         mixed-degree host tree over the columns in phase column order."""
         logs = sorted(stacked_commit, reverse=True)
+        # the host tree reads every column whole: under a row mesh the
+        # ranks' commit-order blocks are gathered
+        stacked_commit = {
+            cl: sharded.whole_commit(st, cl) for cl, st in stacked_commit.items()
+        }
         flat = torch.cat([stacked_commit[cl].reshape(-1) for cl in logs])
         # M31 values fit in int32: half the bytes of the int64 carrier
         flat = flat.to(torch.int32).cpu().numpy().view(np.uint32)

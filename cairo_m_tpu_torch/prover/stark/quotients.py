@@ -33,6 +33,7 @@ import torch
 
 from ...field import m31
 from ...field.qm31 import qadd, qinv, qmul, qmul_m31, qsub
+from ...parallel import sharded
 from .fri import QZERO, qscalar_add, qscalar_mul, qscalar_mul_m31, qscalar_sub
 from . import domain
 
@@ -156,6 +157,10 @@ def quotient_column_device(log_size: int, batches, stacks):
         cols = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=0)
         device = cols.device
         px, py = _fft_points(log_size, device)
+        # a cyclic share of a row mesh (parallel/sharded.py) meets its lanes'
+        # points
+        px = sharded.share_of(px, cols, log_size)
+        py = sharded.share_of(py, cols, log_size)
         w = np.zeros((k, 4), dtype=np.int64)
         wa, wb = QZERO, QZERO
         _, _, c = line_coeffs(b.z, b.entries[0][1])

@@ -31,6 +31,7 @@ import torch
 
 from ... import kernels
 from ...field import m31
+from ...parallel import sharded
 
 P = (1 << 31) - 1
 
@@ -837,6 +838,11 @@ def run_wide(stacks, src, sh, const_vals, plan: WidePlan, elog: int,
     assert len(sh) == len(plan.used_bank)
     src = np.asarray(src, np.int64)
     shifts = np.asarray(sh, np.int64) % n
+    if sharded.active_mesh() is not None:
+        if not fft_order:
+            raise ValueError("run_wide: under a row mesh stacks are in FFT order")
+        if sharded.is_share(stacks[0], elog):
+            return _run_wide_share(stacks, src, shifts, const_vals, plan, n)
     sizes = [int(s.shape[0]) for s in stacks]
     bounds = np.cumsum([0] + sizes)
     device = stacks[0].device
@@ -858,6 +864,40 @@ def run_wide(stacks, src, sh, const_vals, plan: WidePlan, elog: int,
             rows[torch.from_numpy(sel).to(device)] = (
                 s.index_select(0, r).index_select(1, lane_src)
             )
+    out = run_plan(rows, const_vals, plan)
+    if sharded.active_mesh() is not None:
+        # every rank computed the whole (small) domain; under a mesh the
+        # outputs are FFT order, as those of a split domain are
+        out = domain.to_fft_order(out)
+    return out
+
+
+def _run_wide_share(stacks, src, shifts, const_vals, plan: WidePlan, n: int):
+    """`run_wide` on cyclic FFT-order shares of a row mesh
+    (parallel/sharded.py): this rank's lanes are its FFT indices, so the
+    outputs come out as this rank's share of the FFT-order outputs.  A bank
+    row of shift 0 is local; the rows of each other shift are fetched from
+    their owners in one routed all-to-all (`sharded.shift_rows`)."""
+    sizes = [int(s.shape[0]) for s in stacks]
+    bounds = np.cumsum([0] + sizes)
+    device = stacks[0].device
+    nl = int(stacks[0].shape[-1])
+    rows = torch.empty((len(src), nl), dtype=torch.int64, device=device)
+    for v in np.unique(shifts):
+        sels, parts = [], []
+        for j, s in enumerate(stacks):
+            sel = np.nonzero(
+                (shifts == v) & (src >= bounds[j]) & (src < bounds[j + 1])
+            )[0]
+            if sel.size == 0:
+                continue
+            r = torch.from_numpy(src[sel] - bounds[j]).to(device)
+            sels.append(sel)
+            parts.append(s.index_select(0, r))
+        part = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+        if v:
+            part = sharded.shift_rows(part, n, int(v))
+        rows[torch.from_numpy(np.concatenate(sels)).to(device)] = part
     return run_plan(rows, const_vals, plan)
 
 

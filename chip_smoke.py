@@ -7,6 +7,10 @@ Run from the repository root on a machine with one CUDA card:
                                      # time on every plan at both block sizes
                                      # and the pyramid kernel's on every
                                      # tree at both tile sizes
+    python3 chip_smoke.py --sharded  # phases 1, 5 and 9: the way to iterate
+                                     # on the row-sharded prover
+    python3 chip_smoke.py --nccl     # phases 1, 5 and 9(c) only, on a
+                                     # machine with two cards or more
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -36,7 +40,11 @@ Phases (each raises on failure, so the script exits non-zero):
    ``REGULAR_96_BITS`` (production tables) and verify, without naming a
    device (the card is the default); all three kernels must have launched
    during that run, a tree takes one leaf launch and at most three pyramid
-   launches, and the launches of the warm prove are printed by shape;
+   launches, and the launches of the warm prove are printed by shape; the
+   proof's digest and the peak device memory are kept for phase 9; the two
+   witness upload routes are timed on this witness (``prove.upload_rows``:
+   bytes and copy seconds; ``colpack.upload_stack``: host classify seconds,
+   packed bytes, copy and unpack seconds) and must rebuild the same stacks;
 6. the stwo framing: (a) fib-40 at test scale on the card and on the CPU,
    byte-equal and matching ``tests/golden/fib40_stwo_proof_sha256.json``;
    (b) fib-100k at ``STWO_FRAMING_96_BITS`` (production tables) proved once
@@ -53,11 +61,21 @@ Phases (each raises on failure, so the script exits non-zero):
    segment's proof digest equal to ``tests/golden/fib40_segments_sha256.json``;
    (b) fibonacci(1,250,000) = 10,000,010 cycles cut at the production cap
    2^20 - 1 into 10 segments at ``REGULAR_96_BITS``: the root chain holds,
-   every proof verifies, and all three kernels launch in every segment.
+   every proof verifies, and all three kernels launch in every segment;
+9. the row-sharded prover (``prove_sharded``, one process per rank): (a)
+   fib-40 at test scale, two ranks on ``cuda:0`` under gloo, every rank's
+   proof equal to ``tests/golden/fib40_proof_sha256.json``; (b) fib-100k at
+   ``REGULAR_96_BITS``, two ranks on ``cuda:0`` under gloo, a cold and a
+   warm prove per rank: the proof byte-equal to phase 5's on every rank and
+   verified, all three kernels launched in every rank's warm prove, each
+   rank's peak device memory below phase 5's; each rank's seconds, phases
+   and exchange bytes and seconds are printed; (c) on a machine with two
+   cards or more, (b) again under NCCL with one card a rank.  Every run
+   prints its backend.  The ranks load the kernel library phase 1 built.
 
 Launch counts are read per path: zeroed just before each path is driven
-and read just after (the segment and command-line paths count inside their
-worker processes).  The last two lines of standard output are a JSON
+and read just after (the segment, command-line and sharded paths count
+inside their worker and rank processes).  The last two lines of standard output are a JSON
 summary of the kernels (time, plain version's time, bound and launches on
 the main path) and ``{"ok": true, "device": {...}}``.  Imports nothing of
 JAX and nothing of the JAX package ``cairo_m_tpu``, and says so before its
@@ -91,6 +109,9 @@ from cairo_m_tpu_torch.prover.stark import framework, merkle, wtape  # noqa: E40
 from cairo_m_tpu_torch.prover.stark.air import logup_shift_scalar  # noqa: E402
 from cairo_m_tpu_torch.prover.verify import verify_cairo_m  # noqa: E402
 from cairo_m_tpu_torch.parallel.segments import prove_segments_multiprocess  # noqa: E402
+from cairo_m_tpu_torch.parallel.sharded import prove_sharded  # noqa: E402
+from cairo_m_tpu_torch.prover.prove import upload_rows  # noqa: E402
+from cairo_m_tpu_torch.prover.stark import colpack  # noqa: E402
 
 FIB_SRC = """
 fn main(n: felt) -> felt {
@@ -555,7 +576,7 @@ def prove_full(pi, cfg, label, runs=("cold", "warm")):
     """Prove on the card (the first proof of a process is cold: CUDA
     context, preprocessed commitment, plan recording) and verify.  The
     device is never named: the card is the entry points' default.
-    -> (launches, launch shapes of the last prove)."""
+    -> (launches, launch shapes of the last prove, the last proof)."""
     kernels.reset_launches()
     secs = {}
     for run in runs:
@@ -581,7 +602,7 @@ def prove_full(pi, cfg, label, runs=("cold", "warm")):
     log(f"  {label}: verified in {verify_s:.3f} s; {n} cycles; "
         + ", ".join(f"{run} {n / t:.1f} cycles/s" for run, t in secs.items()))
     log(f"  {label} launches: {launches}")
-    return launches, shapes
+    return launches, shapes, proof
 
 
 def _cli(*argv, timeout=900):
@@ -695,6 +716,150 @@ def phase_segments_full():
     return launches
 
 
+def phase_upload_routes(pi, reps: int = 3):
+    """The witness's two upload routes on the card, best of ``reps``:
+    ``upload_rows`` (int32 copy, widened on the card) and colpack (host
+    classify, packed copy, unpack on the card).  Both must rebuild the same
+    stacks."""
+    comps = ComponentSet(Relations())
+    comps.write_traces(pi)
+    live = [c for c in comps.all if not c.zero_witness and c.trace_rows]
+    best = {}
+
+    def keep(key, v):
+        best[key] = min(best.get(key, v), v)
+
+    for _ in range(reps):
+        raw = packed = 0
+        for comp in live:
+            rows, m = comp.trace_rows, comp.non_padded_length
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            plain = upload_rows(rows, DEV)
+            torch.cuda.synchronize()
+            t_rows = time.perf_counter() - t
+            raw += 4 * len(rows) * int(rows[0].shape[0])  # int32 on the link
+            t = time.perf_counter()
+            kinds, planes = colpack.classify(rows, m)
+            t_classify = time.perf_counter() - t
+            packed += sum(int(b.nbytes) for b in planes)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            dev_planes = colpack._planes_to_device(planes, DEV)
+            torch.cuda.synchronize()
+            t_copy = time.perf_counter() - t
+            t = time.perf_counter()
+            rebuilt = colpack._unpack(kinds, dev_planes, int(rows[0].shape[0]), DEV)
+            torch.cuda.synchronize()
+            t_unpack = time.perf_counter() - t
+            if not torch.equal(rebuilt, plain):
+                raise AssertionError(f"colpack rebuilt {comp.name} wrong")
+            for key, v in (("rows", t_rows), ("classify", t_classify),
+                           ("copy", t_copy), ("unpack", t_unpack)):
+                best[key + "_sum"] = best.get(key + "_sum", 0.0) + v
+        for key in ("rows", "classify", "copy", "unpack"):
+            keep(key, best.pop(key + "_sum"))
+    colpack_s = best["classify"] + best["copy"] + best["unpack"]
+    log(f"  upload routes, fib-100k witness ({len(live)} components, best of "
+        f"{reps}): upload_rows {raw} bytes in {best['rows']:.4f} s; colpack "
+        f"classify {best['classify']:.4f} s (host), {packed} packed bytes, copy "
+        f"{best['copy']:.4f} s, unpack {best['unpack']:.4f} s: {colpack_s:.4f} s; "
+        f"faster: {'upload_rows' if best['rows'] <= colpack_s else 'colpack'}")
+
+
+def _rank_lines(label, records):
+    for r in records:
+        for i, run in enumerate(r["runs"]):
+            ex = run["exchange"]
+            log(f"  {label} rank {r['rank']} ({r['device']}, {r['backend']}) "
+                f"run {i}: {run['seconds']:.3f} s, phases "
+                + json.dumps({k: round(v, 4) for k, v in run["phases"].items()})
+                + f"; exchanges {ex['exchanges']}, {ex['bytes']} bytes sent, "
+                f"{ex['seconds']:.3f} s; launches {run['launches']}")
+
+
+def phase_sharded_test_scale():
+    """(a) fib-40 at test scale, two gloo ranks on the card."""
+    t = time.time()
+    records = []
+    proof = prove_sharded(
+        FIB_SRC, "main", [40], world_size=2, backend="gloo", devices=[str(DEV)],
+        config=config.test_config(**TEST_CONFIG), test_scale=TEST_SCALE,
+        records=records, timeout=600)
+    _rank_lines("fib-40", records)
+    got = [_digest(r["proof"]) for r in records]
+    want = _golden("fib40_proof_sha256.json")
+    log(f"  fib-40 sharded, 2 ranks on {DEV} under gloo, {time.time() - t:.2f} s: "
+        f"digests {got} (reference {want})")
+    if got != [want] * 2 or _digest(proof.to_json_obj()) != want:
+        raise AssertionError("sharded fib-40 proofs do not match the reference digest")
+
+
+def _sharded_full(world_size, backend, devices, single_digest, single_peak):
+    """fib-100k at REGULAR_96_BITS on ``world_size`` ranks: a cold and a
+    warm prove per rank; checks and prints; -> launches summed over ranks
+    and runs."""
+    t = time.time()
+    records = []
+    proof = prove_sharded(
+        FIB_SRC, "main", [100_000], world_size=world_size, backend=backend,
+        devices=devices, config=config.REGULAR_96_BITS, runs=2,
+        records=records, timeout=900)
+    wall = time.time() - t
+    _rank_lines("fib-100k", records)
+    digest = _digest(proof.to_json_obj())
+    log(f"  fib-100k sharded, {world_size} ranks on {devices} under {backend}, wall "
+        f"{wall:.2f} s: proof sha256 {digest} "
+        f"({'equal to' if digest == single_digest else 'DIFFERENT from'} phase 5's)")
+    if digest != single_digest:
+        raise AssertionError("the sharded proof differs from the single-device proof")
+    t = time.time()
+    if not verify_cairo_m(proof, config.REGULAR_96_BITS):
+        raise AssertionError("the sharded proof did not verify")
+    log(f"  verified in {time.time() - t:.3f} s")
+    for r in records:
+        warm = r["runs"][-1]
+        peak = r["max_memory_allocated"]
+        log(f"  rank {r['rank']}: cold {r['runs'][0]['seconds']:.3f} s, warm "
+            f"{warm['seconds']:.3f} s ({r['n_steps'] / warm['seconds']:.1f} cycles/s); "
+            f"peak device memory {peak / 2**30:.2f} GiB ({peak} bytes) against "
+            f"{single_peak / 2**30:.2f} GiB single-device; warm exchanges "
+            f"{warm['exchange']['bytes']} bytes, {warm['exchange']['seconds']:.3f} s")
+        for name in PATH_KERNELS:
+            if warm["launches"][name] <= 0:
+                raise AssertionError(f"kernel {name} never launched in rank {r['rank']}")
+        if peak >= single_peak:
+            raise AssertionError(f"rank {r['rank']} peak {peak} is not below the "
+                                 f"single-device peak {single_peak}")
+    launches = dict.fromkeys(kernels.launches, 0)
+    for r in records:
+        for run in r["runs"]:
+            for k, n in run["launches"].items():
+                launches[k] += n
+    return launches
+
+
+def phase_sharded_nccl(single_digest, single_peak):
+    """(c) NCCL, one card a rank, min(4, cards) ranks."""
+    count = torch.cuda.device_count()
+    ws = 1 << (min(4, count).bit_length() - 1)
+    _sharded_full(ws, "nccl", [f"cuda:{i}" for i in range(ws)],
+                  single_digest, single_peak)
+
+
+def phase_sharded_full(single_digest, single_peak):
+    """(b) two gloo ranks on the card; (c) NCCL, one card a rank, where the
+    machine has two cards or more."""
+    launches = _sharded_full(2, "gloo", [str(DEV)], single_digest, single_peak)
+    count = torch.cuda.device_count()
+    if count >= 2:
+        phase_sharded_nccl(single_digest, single_peak)
+    else:
+        log(f"  (c) skipped: {count} card visible; NCCL ranks need two cards "
+            "or more, one a rank")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -706,6 +871,27 @@ def main():
     kernels.build(verbose=True)
     kernels.lib()
     log(f"phase 1: kernels built in {time.time() - t:.2f} s")
+    nccl_only = "--nccl" in sys.argv[1:]
+    if nccl_only and torch.cuda.device_count() < 2:
+        raise RuntimeError("--nccl needs two cards or more, one a rank")
+    if "--sharded" in sys.argv[1:] or nccl_only:
+        program = compile_cairo(FIB_SRC).program
+        pi = native_prover_input(program, "main", [100_000])
+        log("phase 5: fib-100k at REGULAR_96_BITS, production scale")
+        torch.cuda.reset_peak_memory_stats()
+        _, _, proof = prove_full(pi, config.REGULAR_96_BITS, "fib-100k")
+        single_peak = torch.cuda.max_memory_allocated()
+        log(f"  peak device memory {single_peak / 2**30:.2f} GiB ({single_peak} bytes)")
+        log("phase 9: the row-sharded prover")
+        if nccl_only:
+            phase_sharded_nccl(_digest(proof.to_json_obj()), single_peak)
+        else:
+            phase_upload_routes(pi)
+            phase_sharded_test_scale()
+            phase_sharded_full(_digest(proof.to_json_obj()), single_peak)
+        log(f"card: {card_line()}")
+        log("stopping after phase 9")
+        return
 
     gen = torch.Generator(device=DEV)
     gen.manual_seed(2024)
@@ -735,8 +921,12 @@ def main():
     log("phase 5: fib-100k at REGULAR_96_BITS, production scale")
     torch.cuda.reset_peak_memory_stats()
     paths = {}
-    paths["main"], warm_shapes = prove_full(pi, config.REGULAR_96_BITS, "fib-100k")
-    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    paths["main"], warm_shapes, proof = prove_full(pi, config.REGULAR_96_BITS, "fib-100k")
+    single_peak = torch.cuda.max_memory_allocated()
+    single_digest = _digest(proof.to_json_obj())
+    log(f"  peak device memory {single_peak / 2**30:.2f} GiB "
+        f"({single_peak} bytes); proof sha256 {single_digest}")
+    phase_upload_routes(pi)
     for name in PATH_KERNELS:
         if paths["main"][name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
@@ -798,8 +988,8 @@ def main():
 
     log("phase 6: stwo framing")
     phase_test_scale(program, "stwo", "fib40_stwo_proof_sha256.json")
-    paths["stwo"], _ = prove_full(pi, config.STWO_FRAMING_96_BITS, "fib-100k stwo",
-                                  runs=("first",))
+    paths["stwo"], _, _ = prove_full(pi, config.STWO_FRAMING_96_BITS, "fib-100k stwo",
+                                     runs=("first",))
     if paths["stwo"]["wtape_run_plan"] <= 0:
         raise AssertionError("kernel wtape_run_plan never launched on the stwo path")
 
@@ -810,6 +1000,10 @@ def main():
     log("phase 8: chained segments, two workers on the card")
     phase_segments_test_scale()
     paths["segments"] = phase_segments_full()
+
+    log("phase 9: the row-sharded prover")
+    phase_sharded_test_scale()
+    paths["sharded"] = phase_sharded_full(single_digest, single_peak)
 
     def entry(name, source, replaces, row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

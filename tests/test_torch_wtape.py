@@ -136,8 +136,16 @@ def _rows(plan, elog, seed):
     return rng.integers(0, P, size=(len(plan.used_bank), 1 << elog), dtype=np.uint32)
 
 
-def test_plain_matches_pallas_executor(sides, wtape_interpret):
-    """The plan of tests/test_pallas.py::test_pallas_wide_tape_matches_scan."""
+def _plain_vs_pallas(sides):
+    """The body of `test_plain_matches_pallas_executor`; returns the
+    reference's plan.
+
+    The reference's ``run_plan`` caches its operand remap on the plan
+    object (``_pallas_cache``), computed with the bank-row count of its
+    first call, and ``framework.composition_plan`` caches the plan itself
+    process-wide.  This call gives it unbucketed rows, so the cache must
+    not outlive it: tests/test_pallas.py, run later in the same process,
+    would read its constants at stale offsets."""
     ref, port = sides
     with both_at_test_scale():
         comp = port.comp("store_add_fp_fp")
@@ -147,9 +155,30 @@ def test_plain_matches_pallas_executor(sides, wtape_interpret):
         consts = port.comp_consts(comp, tplan)
     assert tplan.n_steps <= wtape_pallas.MAX_STEPS
     rows = _rows(tplan, elog, 0)
-    want = np.asarray(wtape_pallas.run_plan(jnp.asarray(rows), consts, rplan, elog))
+    try:
+        want = np.asarray(wtape_pallas.run_plan(jnp.asarray(rows), consts, rplan, elog))
+    finally:
+        rplan.__dict__.pop("_pallas_cache", None)
     got = wtape.run_plan(to_t(rows), consts, tplan)
     np.testing.assert_array_equal(to_np(got), want)
+    return rplan
+
+
+def test_plain_matches_pallas_executor(sides, wtape_interpret):
+    """The plan of tests/test_pallas.py::test_pallas_wide_tape_matches_scan."""
+    _plain_vs_pallas(sides)
+
+
+def test_pallas_executor_cache_does_not_outlive_the_test(sides, wtape_interpret):
+    """After the comparison above, the reference's cached plan carries no
+    operand remap, and the reference's own Pallas-vs-scan comparison
+    (tests/test_pallas.py, bucketed bank rows) agrees in the same
+    process."""
+    import test_pallas
+
+    rplan = _plain_vs_pallas(sides)
+    assert "_pallas_cache" not in rplan.__dict__
+    test_pallas.test_pallas_wide_tape_matches_scan()
 
 
 def _scan_reference(plan, rows, consts, elog):
