@@ -74,12 +74,13 @@ def _bind(lib):
     lib.cm_run.restype = ctypes.c_void_p
     lib.cm_run.argtypes = [
         u32p, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint32,
-        u32p, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint64,
+        u32p, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint64, ctypes.c_uint32,
     ]
     lib.cm_run_resume.restype = ctypes.c_void_p
     lib.cm_run_resume.argtypes = [
         u32p, ctypes.c_uint64, u32p, ctypes.c_uint64, u32p, ctypes.c_uint64,
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint64,
+        ctypes.c_uint32,
     ]
     for name in (
         "cm_bundles", "cm_final_mem", "cm_initial_extra", "cm_clock_updates",
@@ -123,35 +124,41 @@ ERRORS = {
 
 
 def run_raw(program_words: np.ndarray, entry_pc: int, fp_offset: int,
-            args: np.ndarray, ret_slots: int, max_steps: int,
+            args: np.ndarray, ret_slots: int, max_steps: int, clock_limit: int,
             copy: bool = True):
     """-> dict of raw result arrays.  program_words: (n, 4) uint32.
+    ``clock_limit``: the largest clock gap one memory access may span (the
+    clock range check's limit, ``ProtocolScale.rc_limit()``); longer gaps
+    are cut by clock-update rows, as the Python adapter cuts them.
 
     With copy=False the arrays are zero-copy views into native buffers —
     cheaper by a full touch of the bundle stream (the dominant cost on
     lazily-backed VMs) — and the caller MUST call out["free"]() when done
     with them (the native side pools the freed buffers for reuse)."""
     lib = _load()
+    _check_clock_limit(clock_limit)
     pw = np.ascontiguousarray(program_words, dtype=np.uint32)
     ar = np.ascontiguousarray(args, dtype=np.uint32)
     h = lib.cm_run(
         pw.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)), len(pw),
         entry_pc, fp_offset,
         ar.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)), len(ar),
-        ret_slots, max_steps,
+        ret_slots, max_steps, clock_limit,
     )
     return _collect(lib, h, copy)
 
 
 def run_resume_raw(locals_: np.ndarray, heap: np.ndarray, sparse: np.ndarray,
                    pc: int, fp: int, final_pc: int, max_steps: int,
-                   copy: bool = True):
+                   clock_limit: int, copy: bool = True):
     """Resume a continuation segment from a full memory image.
 
     locals_/heap: (n, 4) uint32 (heap index i = address MAX_ADDRESS - i);
     sparse: (m, 5) uint32 (addr, v0..v3) far-gap cells.  The image becomes
-    the segment's clock-0 snapshot (see vm_core.cpp cm_run_resume)."""
+    the segment's clock-0 snapshot (see vm_core.cpp cm_run_resume);
+    ``clock_limit`` as in `run_raw`."""
     lib = _load()
+    _check_clock_limit(clock_limit)
     lo = np.ascontiguousarray(locals_, dtype=np.uint32)
     he = np.ascontiguousarray(heap, dtype=np.uint32)
     sp = np.ascontiguousarray(sparse, dtype=np.uint32)
@@ -160,9 +167,14 @@ def run_resume_raw(locals_: np.ndarray, heap: np.ndarray, sparse: np.ndarray,
         lo.ctypes.data_as(u32p), lo.shape[0] if lo.size else 0,
         he.ctypes.data_as(u32p), he.shape[0] if he.size else 0,
         sp.ctypes.data_as(u32p), sp.shape[0] if sp.size else 0,
-        pc, fp, final_pc, max_steps,
+        pc, fp, final_pc, max_steps, clock_limit,
     )
     return _collect(lib, h, copy)
+
+
+def _check_clock_limit(clock_limit):
+    if not 0 < clock_limit < 1 << 31:
+        raise ValueError(f"clock_limit must lie in [1, 2^31): {clock_limit}")
 
 
 def _collect(lib, h, copy):

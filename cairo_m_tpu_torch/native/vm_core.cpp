@@ -2,7 +2,8 @@
 //
 // Executes a Cairo-M program (QM31 memory image) and, in the same pass,
 // performs the prover adapter's memory replay: per-access previous clock /
-// previous value tracking, clock-update emission for gaps > RC20_LIMIT, and
+// previous value tracking, clock-update emission for gaps beyond the clock
+// range check's span (the caller's `clock_limit`: 2^20 - 1 in production), and
 // initial/final memory tables.  Mirrors the semantics of
 // vm/vm.py + prover/adapter/adapter.py exactly (cross-tested from
 // tests/test_torch_vm.py); the reference counterparts are
@@ -22,7 +23,6 @@ namespace {
 
 constexpr uint64_t P = 0x7fffffffULL;          // 2^31 - 1
 constexpr uint32_t MAX_ADDRESS = (1u << 28) - 1;
-constexpr uint32_t RC20_LIMIT = (1u << 20) - 1;
 constexpr uint32_t U16_MASK = 0xffff;
 // Max dense-array growth per access: contiguous use (frames, inline arrays,
 // heap) stays dense; an isolated far-out address (e.g. from buggy pointer
@@ -105,6 +105,9 @@ struct Memory {
   std::unordered_map<uint32_t, Cell> sparse_tracked;
   std::vector<uint32_t> initial_extra;  // first-access adoptions: addr,v0..v3
   std::vector<uint32_t> clock_updates;  // addr, prev_clk, v0..v3 per entry
+  // largest clock gap one memory access may span; longer gaps are cut by
+  // clock-update rows (the clock range check's limit)
+  uint32_t clock_limit = (1u << 20) - 1;
   // per-access outputs of push():
   uint32_t last_prev_clock;
   QM31 last_prev_value;
@@ -189,13 +192,13 @@ struct Memory {
     }
     *cell = Cell{value, clock, 1};
     uint32_t delta = clock - prev_clk;
-    if (clock > prev_clk && delta > RC20_LIMIT) {
-      uint32_t steps = (delta - 1) / RC20_LIMIT;
+    if (clock > prev_clk && delta > clock_limit) {
+      uint32_t steps = (delta - 1) / clock_limit;
       for (uint32_t s = 0; s < steps; s++) {
         clock_updates.push_back(addr);
         clock_updates.push_back(prev_clk);
         for (int k = 0; k < 4; k++) clock_updates.push_back(prev_val.v[k]);
-        prev_clk += RC20_LIMIT;
+        prev_clk += clock_limit;
       }
     }
     last_prev_clock = prev_clk;
@@ -517,7 +520,7 @@ extern "C" {
 // args: arg_count M31 values. Returns NULL on alloc failure.
 void* cm_run(const uint32_t* program, uint64_t n_words, uint32_t entry_pc,
              uint32_t fp_offset, const uint32_t* args, uint32_t arg_count,
-             uint32_t ret_slots, uint64_t max_steps) {
+             uint32_t ret_slots, uint64_t max_steps, uint32_t clock_limit) {
   RunResult* out = pool_take();
   if (!out) return nullptr;
   VM vm;
@@ -525,6 +528,7 @@ void* cm_run(const uint32_t* program, uint64_t n_words, uint32_t entry_pc,
   // adopt the pooled buffers so their capacity is actually reused (they are
   // move-assigned back into `out` at the end of the run)
   adopt_pool_buffers(vm, out);
+  vm.mem.clock_limit = clock_limit;
   try {
   vm.mem.locals.resize(n_words);
   for (uint64_t i = 0; i < n_words; i++)
@@ -561,12 +565,13 @@ void* cm_run_resume(const uint32_t* locals, uint64_t n_loc,
                     const uint32_t* heap, uint64_t n_heap,
                     const uint32_t* sparse, uint64_t n_sparse,
                     uint32_t pc, uint32_t fp, uint32_t final_pc,
-                    uint64_t max_steps) {
+                    uint64_t max_steps, uint32_t clock_limit) {
   RunResult* out = pool_take();
   if (!out) return nullptr;
   VM vm;
   vm.out = out;
   adopt_pool_buffers(vm, out);
+  vm.mem.clock_limit = clock_limit;
   try {
   vm.mem.locals.resize(n_loc);
   for (uint64_t i = 0; i < n_loc; i++)

@@ -10,8 +10,8 @@ and proves segments ``proc_id, proc_id + N, ...`` independently on
 Segment proofs share no state, so the only communication is the final
 collection; several workers may share one card.  With
 ``use_torch_distributed=True`` the workers also join one gloo process group
-on the coordinator's address and meet at a barrier before they exit (the
-counterpart of the reference's ``use_jax_distributed`` and its
+on a file store in the job's directory and meet at a barrier before they
+exit (the counterpart of the reference's ``use_jax_distributed`` and its
 ``sync_global_devices``); the proofs do not change.
 
 Chain integrity: the coordinator raises unless the segment set is complete
@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import json
 import os
-import socket
 import subprocess
 import sys
 import tempfile
@@ -38,10 +37,9 @@ def _worker_main(argv):
     import argparse
 
     ap = argparse.ArgumentParser()
-    # the coordinator's address: ``localhost:<port>`` (the port the
-    # coordinator reserved) or ``file://<path>``; the workers join a gloo
-    # group there only under --torch-distributed
-    ap.add_argument("--coordinator", required=True)
+    # the process group's address under --torch-distributed:
+    # ``file://<path>`` (what the launcher passes) or ``host:port``
+    ap.add_argument("--coordinator")
     ap.add_argument("--torch-distributed", action="store_true")
     ap.add_argument("--num-procs", type=int, required=True)
     ap.add_argument("--proc-id", type=int, required=True)
@@ -59,6 +57,8 @@ def _worker_main(argv):
 
     device = resolve_device(args.device)
     if args.torch_distributed:
+        if not args.coordinator:
+            raise ValueError("--torch-distributed needs --coordinator")
         import torch.distributed as dist
 
         init = args.coordinator
@@ -148,18 +148,13 @@ def prove_segments_multiprocess(
     across them, collect the proofs, check the Poseidon2 root chain, and
     return the ordered per-segment records.  The default is the first card;
     a worker whose device is a card that does not exist raises.
-    ``use_torch_distributed``: the workers join one gloo process group at
-    the coordinator's address, a file store in the job's directory (a
-    reserved-then-closed port can be taken by another job before the group
-    binds it), and meet at a barrier before they exit."""
+    ``use_torch_distributed``: the workers join one gloo process group
+    whose store is a file in the job's directory (a reserved-then-closed
+    port can be taken by another job before the group binds it), and meet
+    at a barrier before they exit."""
     if not devices:
         raise ValueError("prove_segments_multiprocess needs at least one device")
     with tempfile.TemporaryDirectory(prefix="cm_segments_") as workdir:
-        # an ephemeral port, never a pid-derived one: those collide across
-        # concurrent jobs and pid reuse
-        with socket.socket() as s:
-            s.bind(("localhost", 0))
-            port = s.getsockname()[1]
         with open(os.path.join(workdir, "job.json"), "w") as f:
             json.dump(
                 {
@@ -179,15 +174,13 @@ def prove_segments_multiprocess(
             subprocess.Popen(
                 [
                     sys.executable, "-m", "cairo_m_tpu_torch.parallel.segments",
-                    "--coordinator", (
-                        "file://" + os.path.join(workdir, "store")
-                        if use_torch_distributed else f"localhost:{port}"
-                    ),
                     "--num-procs", str(n_processes),
                     "--proc-id", str(i),
                     "--workdir", workdir,
                     "--device", str(devices[i % len(devices)]),
-                    *(["--torch-distributed"] if use_torch_distributed else []),
+                    *(["--torch-distributed", "--coordinator",
+                       "file://" + os.path.join(workdir, "store")]
+                      if use_torch_distributed else []),
                 ],
                 cwd=repo,
             )

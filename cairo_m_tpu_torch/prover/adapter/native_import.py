@@ -21,7 +21,7 @@ import numpy as np
 from ... import native
 from ...isa.instruction import SPECS_BY_OPCODE
 from ...isa.program import PublicAddressRanges
-from .adapter import MerkleTreesData, OpcodeBundles, ProverInput
+from .adapter import MerkleTreesData, OpcodeBundles, ProverInput, rc_limit
 
 P = (1 << 31) - 1
 REC = 37  # fixed bundle record size (see vm_core.cpp)
@@ -156,7 +156,7 @@ def native_prover_input(program, entrypoint: str, args, max_steps=1 << 32):
     fp_offset = M + K + 2
     raw = native.run_raw(
         words, info.pc, fp_offset, np.array(args, np.uint32), K, max_steps,
-        copy=False,
+        rc_limit(), copy=False,
     )
     n_words = len(words)
     new_fp = n_words + fp_offset
@@ -186,10 +186,11 @@ def native_segment_prover_inputs(program, entrypoint: str, args,
     n_words = len(words)
     new_fp = n_words + fp_offset
     ranges = PublicAddressRanges.new(n_words, M, K)
+    clock_limit = rc_limit()  # the scale when the run starts, for every segment
 
     raw = native.run_raw(
         words, info.pc, fp_offset, np.array(args, np.uint32), K, max_steps,
-        copy=False,
+        clock_limit, copy=False,
     )
     snapshot = _entry_snapshot(words, new_fp, args, M, K)
     init_regs = (info.pc, new_fp)
@@ -217,6 +218,6 @@ def native_segment_prover_inputs(program, entrypoint: str, args,
         yield pi
         raw = native.run_resume_raw(
             locals_, heap, sparse,
-            init_regs[0], init_regs[1], n_words, max_steps,
+            init_regs[0], init_regs[1], n_words, max_steps, clock_limit,
             copy=False,
         )

@@ -72,6 +72,26 @@ class Proof:
             pcs.PcsProof.from_json_obj(o["pcs_proof"]),
         )
 
+    def program_id(self) -> int:
+        """Poseidon2 Merkle root over just the program's public memory
+        entries: a succinct program identity derivable from any proof
+        (reference `Proof::program_id`, crates/prover/src/lib.rs:76-98:
+        rebuild an addr->value map from public_data.program, hash it as an
+        initial-type partial tree with no public addresses).  Computed on
+        the host, under the active Poseidon2 instance
+        (`hash.poseidon2_params.use_params`)."""
+        from ..isa.program import PublicAddressRanges
+        from .adapter.merkle import build_partial_merkle_tree
+
+        mem = {
+            addr: (tuple(val), 0, 0)
+            for addr, val, _clock in self.public_data.program
+        }
+        _, root = build_partial_merkle_tree(
+            mem, "initial", PublicAddressRanges()
+        )
+        return root
+
 
 def upload_rows(rows, device) -> torch.Tensor:
     """List of (n,) uint32 NumPy rows (values < 2^31) -> (k, n) int64 stack

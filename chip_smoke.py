@@ -7,8 +7,11 @@ Run from the repository root on a machine with one CUDA card:
                                      # time on every plan at both block sizes
                                      # and the pyramid kernel's on every
                                      # tree at both tile sizes
+    python3 chip_smoke.py --witnesses  # phases 1 and 5b: the way to
+                                       # iterate on the AIR components
     python3 chip_smoke.py --sharded  # phases 1, 5 and 9: the way to iterate
-                                     # on the row-sharded prover
+                                     # on the row-sharded prover, and the
+                                     # witness upload routes
     python3 chip_smoke.py --nccl     # phases 1, 5 and 9(c) only, on a
                                      # machine with two cards or more
 
@@ -41,10 +44,27 @@ Phases (each raises on failure, so the script exits non-zero):
    device (the card is the default); all three kernels must have launched
    during that run, a tree takes one leaf launch and at most three pyramid
    launches, and the launches of the warm prove are printed by shape; the
-   proof's digest and the peak device memory are kept for phase 9; the two
-   witness upload routes are timed on this witness (``prove.upload_rows``:
-   bytes and copy seconds; ``colpack.upload_stack``: host classify seconds,
-   packed bytes, copy and unpack seconds) and must rebuild the same stacks;
+   proof's digest and the peak device memory are kept for phase 9;
+5b. every AIR component, through the witnesses of
+   ``tests/golden/witnesses.json`` (together they keep all 45 components
+   busy): (a) each test-scale witness compiled, run by the native VM and
+   proved on the card under every framing it has a reference digest for,
+   the digest equal to the reference's and the proof verified; (b) the
+   wide-tape kernels on every plan of every live component of all the
+   witnesses: the kernel the rule picks (recorded per plan) and the
+   global-scratch kernel, each bit for bit against the plain version and
+   timed beside its bound; the opcode plans of PERF.md's table also at
+   2^20 lanes; (c) the production witnesses at ``REGULAR_96_BITS``:
+   ``allops`` proved cold (the prover's plan and preprocessed caches set
+   aside) and warm, its seconds, launches, peak device memory and program
+   id printed, the other once, each digest equal to
+   ``tests/golden/<name>_production_sha256.json`` and each proof verified,
+   but for ``allops``'s, which the verifier must reject at the OODS check as
+   the reference's verifier rejects the same bytes (store_le_fp_imm's
+   constraints exceed the composition's degree in both packages: the
+   ``fault`` that witnesses.json records);
+   all three kernels must have launched on the allops path, and every plan
+   its warm prove ran must have a launch shape (b) checked;
 6. the stwo framing: (a) fib-40 at test scale on the card and on the CPU,
    byte-equal and matching ``tests/golden/fib40_stwo_proof_sha256.json``;
    (b) fib-100k at ``STWO_FRAMING_96_BITS`` (production tables) proved once
@@ -72,16 +92,21 @@ Phases (each raises on failure, so the script exits non-zero):
    and exchange bytes and seconds are printed; (c) on a machine with two
    cards or more, (b) again under NCCL with one card a rank.  Every run
    prints its backend.  The ranks load the kernel library phase 1 built.
+   Under ``--sharded`` only, the two witness upload routes are timed on the
+   fib-100k witness (``prove.upload_rows``: bytes and copy seconds;
+   ``colpack.upload_stack``: host classify seconds, packed bytes, copy and
+   unpack seconds) and must rebuild the same stacks.
 
 Launch counts are read per path: zeroed just before each path is driven
 and read just after (the segment, command-line and sharded paths count
-inside their worker and rank processes).  The last two lines of standard output are a JSON
-summary of the kernels (time, plain version's time, bound and launches on
-the main path) and ``{"ok": true, "device": {...}}``.  Imports nothing of
+inside their worker and rank processes).  The last two lines of standard
+output are a JSON summary of the kernels (time, plain version's time, bound
+and launches on the main path, and on every other path) and ``{"ok": true, "device": {...}}``.  Imports nothing of
 JAX and nothing of the JAX package ``cairo_m_tpu``, and says so before its
 last lines.
 """
 
+import contextlib
 import hashlib
 import json
 import os
@@ -101,13 +126,14 @@ from cairo_m_tpu_torch.compiler import compile_cairo  # noqa: E402
 from cairo_m_tpu_torch import kernels  # noqa: E402
 from cairo_m_tpu_torch.hash import blake2s  # noqa: E402
 from cairo_m_tpu_torch.prover import config  # noqa: E402
+from cairo_m_tpu_torch.isa.program import Program  # noqa: E402
 from cairo_m_tpu_torch.prover.adapter.native_import import native_prover_input  # noqa: E402
 from cairo_m_tpu_torch.prover.components.registry import ComponentSet  # noqa: E402
 from cairo_m_tpu_torch.prover.prove import prove_cairo_m  # noqa: E402
 from cairo_m_tpu_torch.prover.relations import Relations  # noqa: E402
 from cairo_m_tpu_torch.prover.stark import framework, merkle, wtape  # noqa: E402
 from cairo_m_tpu_torch.prover.stark.air import logup_shift_scalar  # noqa: E402
-from cairo_m_tpu_torch.prover.verify import verify_cairo_m  # noqa: E402
+from cairo_m_tpu_torch.prover.verify import VerificationError, verify_cairo_m  # noqa: E402
 from cairo_m_tpu_torch.parallel.segments import prove_segments_multiprocess  # noqa: E402
 from cairo_m_tpu_torch.parallel.sharded import prove_sharded  # noqa: E402
 from cairo_m_tpu_torch.prover.prove import upload_rows  # noqa: E402
@@ -138,8 +164,16 @@ SEGMENT_CAP = (1 << 20) - 1
 PATH_KERNELS = ("blake2s_leaves", "blake2s_pyramid", "wtape_run_plan")
 
 
+_START = time.time()
+
+
 def log(msg):
     print(msg, flush=True)
+
+
+def phase(msg):
+    """Log the start of a phase with the seconds since the script began."""
+    log(f"{msg} [{time.time() - _START:.1f} s]")
 
 
 def card_line() -> str:
@@ -481,17 +515,34 @@ def _lanes_sweep(rows, consts, plan):
     log(f"    ms by lanes per block: {times}")
 
 
-def phase_wtape(pi, gen):
-    """Kernel B vs plain on every plan of the fib-100k witness, each timed
-    (shared-memory kernel, global-scratch kernel; the table's plans also
-    plain).  -> (rows keyed by launch shape, the synthetic plan's entry)."""
+def _variant(plan, n) -> str:
+    """The kernel `wtape.run_plan` launches for this plan by its rule:
+    the shared-memory kernel at 32 or 64 lanes a block, or the
+    global-scratch kernel where the register file does not fit."""
+    lanes = wtape.pick_lanes(wtape.kernel_program(plan).n_regs, n)
+    return "global" if lanes is None else f"smem{lanes}"
+
+
+def check_plans(jobs, gen, timed=(), require_smem=False):
+    """Kernel B vs plain on every job (name, plan, n lanes, constants): the
+    kernel the rule picks and the global-scratch kernel, forced, each bit
+    for bit against the plain version on random bank rows, and both timed;
+    the plain version is timed too for the plans named in ``timed``.
+    ``require_smem``: the rule must pick the shared-memory kernel.
+    -> rows keyed by launch shape."""
     err = 0
     table = {}
-    for name, plan, n, consts in witness_plans(pi):
+    variants = {}
+    for name, plan, n, consts in jobs:
         rows = _rand((len(plan.used_bank), n), (1 << 31) - 1, gen)
+        variant = _variant(plan, n)
+        variants[variant] = variants.get(variant, 0) + 1
         before = dict(kernels.launches)
         got = wtape.run_plan(rows, consts, plan)
-        if kernels.launches["wtape_run_plan"] != before["wtape_run_plan"] + 1:
+        launched = "wtape_run_plan" if variant != "global" else "wtape_run_plan_global"
+        if kernels.launches[launched] != before[launched] + 1:
+            raise AssertionError(f"{name}: the rule's kernel ({variant}) did not launch")
+        if require_smem and variant == "global":
             raise AssertionError(f"{name}: not run by the shared-memory kernel")
         want = _plain(rows, consts, plan)
         e = max(max_abs_err(got, want),
@@ -502,12 +553,12 @@ def phase_wtape(pi, gen):
         global_ms = time_ms(lambda: wtape.run_plan(rows, cdev, plan, variant="global"))
         b_ms, b_by = wtape_bound(plan, n)
         row = {"name": name, "ms": ms, "global_ms": global_ms, "bound_ms": b_ms,
-               "bound_by": b_by, "max_abs_err": e}
+               "bound_by": b_by, "max_abs_err": e, "variant": variant}
         table[wtape._launch_shape(plan, n)] = row
-        line = (_plan_line(name, plan, n) + f": max_abs_err={e}, kernel {ms:.4f} ms, "
-                f"global-scratch kernel {global_ms:.4f} ms, bound {b_ms:.5f} ms "
-                f"({b_by}), kernel/bound {ms / b_ms:.2f}")
-        if name in WTAPE_TABLE:  # the plain version is slow: the table's plans only
+        line = (_plan_line(name, plan, n) + f" {variant}: max_abs_err={e}, kernel "
+                f"{ms:.4f} ms, global-scratch kernel {global_ms:.4f} ms, bound "
+                f"{b_ms:.5f} ms ({b_by}), kernel/bound {ms / b_ms:.2f}")
+        if name in timed:  # the plain version is slow: the table's plans only
             row["plain_ms"] = time_ms(lambda: _plain(rows, consts, plan), reps=2)
             line += f", plain {row['plain_ms']:.4f} ms"
         log(line)
@@ -516,9 +567,19 @@ def phase_wtape(pi, gen):
         del rows, got, want
     if err:
         raise AssertionError(f"wtape kernel disagrees with plain: {err}")
-    missing = set(WTAPE_TABLE) - {r["name"] for r in table.values() if "plain_ms" in r}
+    log(f"  {len(jobs)} plans held to plain, each by the kernel the rule picks "
+        f"and by the global-scratch kernel; the rule picked {variants}")
+    missing = set(timed) - {r["name"] for r in table.values() if "plain_ms" in r}
     if missing:
         raise AssertionError(f"plans of the kernel table not in the witness: {missing}")
+    return table
+
+
+def phase_wtape(pi, gen):
+    """Kernel B vs plain on every plan of the fib-100k witness, each timed
+    (shared-memory kernel, global-scratch kernel; the table's plans also
+    plain).  -> (rows keyed by launch shape, the synthetic plan's entry)."""
+    table = check_plans(witness_plans(pi), gen, WTAPE_TABLE, require_smem=True)
 
     # the global-scratch kernel by the rule: a register file too large for
     # shared memory
@@ -572,10 +633,211 @@ def phase_test_scale(program, framing, golden):
         config.set_production_scale()
 
 
-def prove_full(pi, cfg, label, runs=("cold", "warm")):
+# the witnesses that keep every AIR component busy, and their reference
+# digests (tests/golden/): sources, arguments and scales as plain data
+WITNESSES_FILE = os.path.join(GOLDEN_DIR, "witnesses.json")
+# kernel B's rows of PERF.md's table for the components fib-100k leaves idle
+# (the table count of u32_store_div_rem_fp_fp counts its range_check_8 and
+# range_check_16 lookups)
+WTAPE_WITNESS_TABLE = ["allops: composition bitwise", "allops: interaction bitwise",
+                       "allops: composition u32_store_div_rem_fp_fp",
+                       "allops: table count u32_store_div_rem_fp_fp",
+                       "allops: interaction range_check_16"]
+
+
+def load_witnesses() -> dict:
+    with open(WITNESSES_FILE) as f:
+        return json.load(f)
+
+
+def witness_input(w):
+    """The port's own prover input of a witness (its compiler, or its ISA
+    for an assembled program; the native VM core and adapter) at the
+    current protocol scale."""
+    if "program" in w:
+        program = Program.from_json(json.dumps(w["program"]))
+    else:
+        program = compile_cairo("\n".join(w["source"]) + "\n").program
+    slots = []  # call-slot encoding: a u32 is two 16-bit limbs, low first
+    for p, a in zip(program.get_entrypoint("main").params, w["args"], strict=True):
+        slots += [a & 0xFFFF, a >> 16] if p.ty.kind == "u32" else [a]
+    return native_prover_input(program, "main", slots)
+
+
+def witness_golden(name, w, framing="native"):
+    """The witness's reference digest, or None where none is committed."""
+    kind = "production" if w["scale"] == "production" else "proof"
+    stwo = "_stwo" if framing == "stwo" else ""
+    path = os.path.join(GOLDEN_DIR, f"{name}{stwo}_{kind}_sha256.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)["sha256"]
+
+
+def _live(pi):
+    comps = ComponentSet(Relations())
+    comps.write_traces(pi)
+    return [c.name for c in comps.all if not c.zero_witness]
+
+
+def phase_witnesses_test_scale(witnesses):
+    """(a) Every test-scale witness proved on the card (the default device)
+    under each framing it has a reference digest for: digest equal to the
+    reference's, proof verified.  -> the plans of every witness (recorded
+    at test scale) for kernel B's check."""
+    config.set_test_scale(**TEST_SCALE)
+    jobs = []
+    try:
+        for name, w in witnesses.items():
+            if w["scale"] != "test":
+                continue
+            pi = witness_input(w)
+            if _live(pi) != w["live"]:
+                raise AssertionError(f"{name}: live components {_live(pi)} != {w['live']}")
+            for framing in ("native", "stwo"):
+                want = witness_golden(name, w, framing)
+                if want is None:
+                    continue
+                cfg = config.test_config(**TEST_CONFIG, framing=framing)
+                t = time.time()
+                proof = prove_cairo_m(pi, cfg)
+                prove_s = time.time() - t
+                digest = _digest(proof.to_json_obj())
+                ok = verify_cairo_m(proof, cfg)
+                log(f"  {name} {framing} test scale ({pi.total_steps} cycles, "
+                    f"{len(w['live'])} live components): {prove_s:.2f} s, verified "
+                    f"{ok}, sha256 {digest} ({'equal to' if digest == want else 'DIFFERENT from'} "
+                    f"the reference's)")
+                if digest != want or not ok:
+                    raise AssertionError(f"{name} {framing}: proof differs from the "
+                                         "reference digest or did not verify")
+            jobs += [(f"{name}: {job}", plan, n, consts)
+                     for job, plan, n, consts in witness_plans(pi)]
+    finally:
+        config.set_production_scale()
+    return jobs
+
+
+@contextlib.contextmanager
+def _cold_prover_caches():
+    """Set the prover's process-wide caches of recorded plans and of the
+    preprocessed tables' commitment aside, so that the first prove in the
+    context is cold but for the CUDA context, the kernels and the
+    twiddles; the entries set aside come back afterwards, so later phases
+    find what they found before."""
+    from cairo_m_tpu_torch.prover import prove as prove_mod
+
+    caches = (framework._PLAN_CACHE, prove_mod._PRE_PHASE_CACHE,
+              prove_mod._PRE_STACK_CACHE)
+    saved = [dict(c) for c in caches]
+    for c in caches:
+        c.clear()
+    try:
+        yield
+    finally:
+        for c, old in zip(caches, saved):
+            c.update(old)
+
+
+def phase_witnesses_production(inputs):
+    """The production witnesses at REGULAR_96_BITS on the card: ``allops``
+    cold and warm, then each other one once; every digest equal to the
+    reference's, every proof verified.  -> (launches of allops' proves and
+    verify, its warm prove's launch shapes)."""
+    launches = shapes = None
+    for name, (w, pi) in inputs.items():
+        if name == "allops":
+            torch.cuda.reset_peak_memory_stats()
+            with _cold_prover_caches():
+                launches, shapes, proof = prove_full(
+                    pi, config.REGULAR_96_BITS, name,
+                    rejected=not w.get("verifies", True))
+            peak = torch.cuda.max_memory_allocated()
+            log(f"  {name}: peak device memory {peak / 2**30:.2f} GiB ({peak} bytes); "
+                f"program id {proof.program_id()}")
+        else:
+            _, _, proof = prove_full(pi, config.REGULAR_96_BITS, name, runs=("first",),
+                                     rejected=not w.get("verifies", True))
+        digest = _digest(proof.to_json_obj())
+        want = witness_golden(name, w)
+        log(f"  {name}: proof sha256 {digest} "
+            f"({'equal to' if digest == want else 'DIFFERENT from'} the reference's)")
+        if digest != want:
+            raise AssertionError(f"{name}: proof differs from the reference digest")
+    return launches, shapes
+
+
+def phase_witnesses(gen, witnesses):
+    """Phase 5b: every AIR component on the card.  -> (launches of the
+    allops path, kernel B's table rows)."""
+    phase("  (a) test scale")
+    jobs = phase_witnesses_test_scale(witnesses)
+    inputs = {}
+    prod_jobs = []
+    for name, w in witnesses.items():
+        if w["scale"] == "production":
+            pi = witness_input(w)
+            if _live(pi) != w["live"]:
+                raise AssertionError(f"{name}: live components {_live(pi)} != {w['live']}")
+            inputs[name] = (w, pi)
+            prod_jobs += [(f"{name}: {job}", plan, n, consts)
+                          for job, plan, n, consts in witness_plans(pi)]
+    phase("  (b) kernel B on every plan of every live component of the witnesses")
+    seen, unique = set(), []
+    # a plan that several witnesses share at one size is checked once, under
+    # the first production witness that has it
+    for job in prod_jobs + jobs:
+        key = (job[0].split(": ", 1)[1], job[2], len(job[1].used_bank), job[1].n_regs)
+        if key not in seen:
+            seen.add(key)
+            unique.append(job)
+    table = check_plans(unique, gen, WTAPE_WITNESS_TABLE)
+    # the opcode plans of the table run on a few rows in these witnesses:
+    # their time at 2^20 lanes too, as a proof of that many rows would run
+    # them
+    for name, plan, n, consts in unique:
+        if name in WTAPE_WITNESS_TABLE and n < 1 << 16:
+            big = 1 << 20
+            rows = _rand((len(plan.used_bank), big), (1 << 31) - 1, gen)
+            e = max_abs_err(wtape.run_plan(rows, consts, plan), _plain(rows, consts, plan))
+            if e:
+                raise AssertionError(f"{name} at n=2^20: kernel disagrees with plain: {e}")
+            cdev = torch.from_numpy(np.asarray(consts, np.int64)).to(DEV)
+            ms = time_ms(lambda: wtape.run_plan(rows, cdev, plan))
+            plain_ms = time_ms(lambda: _plain(rows, consts, plan), reps=2)
+            b_ms, b_by = wtape_bound(plan, big)
+            log(_plan_line(name, plan, big) + f" {_variant(plan, big)}: max_abs_err={e}, "
+                f"kernel {ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), kernel/bound "
+                f"{ms / b_ms:.2f}, plain {plain_ms:.4f} ms")
+            del rows
+    phase("  (c) production scale")
+    launches, shapes = phase_witnesses_production(inputs)
+    for name in PATH_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the allops path")
+    unknown = [k for k in shapes if k[0].startswith("wtape") and k[1:] not in table]
+    if unknown:
+        raise AssertionError(f"the warm allops prove ran plans not checked: {unknown}")
+    for shape, row in table.items():
+        row["launches"] = (shapes.get(("wtape_run_plan", *shape), 0)
+                           + shapes.get(("wtape_run_plan_global", *shape), 0))
+        if "plain_ms" in row:
+            log(f"    wtape {row['name']} n=2^{shape[-1].bit_length() - 1}: "
+                f"{row['ms']:.4f} ms ({row['variant']}; global-scratch kernel "
+                f"{row['global_ms']:.4f} ms), bound {row['bound_ms']:.5f} ms "
+                f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, launches per "
+                f"warm allops prove {row['launches']}")
+    return launches, table
+
+
+def prove_full(pi, cfg, label, runs=("cold", "warm"), rejected=False):
     """Prove on the card (the first proof of a process is cold: CUDA
     context, preprocessed commitment, plan recording) and verify.  The
     device is never named: the card is the entry points' default.
+    ``rejected``: the verifier must reject the proof at the OODS check, as
+    the reference's rejects the same bytes (a fault of both packages,
+    tests/golden/witnesses.json).
     -> (launches, launch shapes of the last prove, the last proof)."""
     kernels.reset_launches()
     secs = {}
@@ -593,13 +855,26 @@ def prove_full(pi, cfg, label, runs=("cold", "warm")):
         log(f"  {label} {run} prove: {secs[run]:.3f} s, phases "
             + json.dumps({k: round(v, 4) for k, v in timing.items()}))
     t = time.time()
-    ok = verify_cairo_m(proof, cfg)
+    if rejected:
+        try:
+            verify_cairo_m(proof, cfg)
+        except VerificationError as e:
+            if "composition polynomial mismatch at OODS" not in str(e):
+                raise
+            ok = True
+        else:
+            raise AssertionError(f"{label}: the verifier accepted the proof that the "
+                                 "reference's rejects")
+    else:
+        ok = verify_cairo_m(proof, cfg)
     verify_s = time.time() - t
     launches = dict(kernels.launches)
     if not ok:
         raise AssertionError(f"{label} proof did not verify")
     n = pi.total_steps
-    log(f"  {label}: verified in {verify_s:.3f} s; {n} cycles; "
+    outcome = ("rejected at the OODS check, as the reference's verifier rejects it"
+               if rejected else "verified")
+    log(f"  {label}: {outcome} in {verify_s:.3f} s; {n} cycles; "
         + ", ".join(f"{run} {n / t:.1f} cycles/s" for run, t in secs.items()))
     log(f"  {label} launches: {launches}")
     return launches, shapes, proof
@@ -874,15 +1149,23 @@ def main():
     nccl_only = "--nccl" in sys.argv[1:]
     if nccl_only and torch.cuda.device_count() < 2:
         raise RuntimeError("--nccl needs two cards or more, one a rank")
+    if "--witnesses" in sys.argv[1:]:
+        phase("phase 5b: every AIR component, the witnesses of tests/golden/witnesses.json")
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(2024)
+        phase_witnesses(gen, load_witnesses())
+        log(f"card: {card_line()}")
+        log("stopping after phase 5b")
+        return
     if "--sharded" in sys.argv[1:] or nccl_only:
         program = compile_cairo(FIB_SRC).program
         pi = native_prover_input(program, "main", [100_000])
-        log("phase 5: fib-100k at REGULAR_96_BITS, production scale")
+        phase("phase 5: fib-100k at REGULAR_96_BITS, production scale")
         torch.cuda.reset_peak_memory_stats()
         _, _, proof = prove_full(pi, config.REGULAR_96_BITS, "fib-100k")
         single_peak = torch.cuda.max_memory_allocated()
         log(f"  peak device memory {single_peak / 2**30:.2f} GiB ({single_peak} bytes)")
-        log("phase 9: the row-sharded prover")
+        phase("phase 9: the row-sharded prover")
         if nccl_only:
             phase_sharded_nccl(_digest(proof.to_json_obj()), single_peak)
         else:
@@ -895,9 +1178,9 @@ def main():
 
     gen = torch.Generator(device=DEV)
     gen.manual_seed(2024)
-    log("phase 2: blake2s leaf kernel vs plain")
+    phase("phase 2: blake2s leaf kernel vs plain")
     table_a = phase_blake2s(gen)
-    log("phase 2: blake2s pyramid kernel vs plain, every tree of 2^1 .. 2^22 leaves")
+    phase("phase 2: blake2s pyramid kernel vs plain, every tree of 2^1 .. 2^22 leaves")
     table_p = phase_pyramid(gen)
     phase_trees(gen)
     top_s = host_top_seconds()
@@ -909,16 +1192,16 @@ def main():
     pi = native_prover_input(program, "main", [100_000])
     log(f"fib-100k native VM + adapter: {time.time() - t:.3f} s, "
         f"{pi.total_steps} cycles")
-    log("phase 3: wide-tape kernels vs plain, every plan of the fib-100k witness")
+    phase("phase 3: wide-tape kernels vs plain, every plan of the fib-100k witness")
     table_b, synthetic = phase_wtape(pi, gen)
     if "--kernels" in sys.argv[1:]:
         log("--kernels: stopping after the kernel phases")
         return
 
-    log("phase 4: test-scale proof, CUDA vs CPU vs reference digest")
+    phase("phase 4: test-scale proof, CUDA vs CPU vs reference digest")
     phase_test_scale(program, "native", "fib40_proof_sha256.json")
 
-    log("phase 5: fib-100k at REGULAR_96_BITS, production scale")
+    phase("phase 5: fib-100k at REGULAR_96_BITS, production scale")
     torch.cuda.reset_peak_memory_stats()
     paths = {}
     paths["main"], warm_shapes, proof = prove_full(pi, config.REGULAR_96_BITS, "fib-100k")
@@ -926,7 +1209,6 @@ def main():
     single_digest = _digest(proof.to_json_obj())
     log(f"  peak device memory {single_peak / 2**30:.2f} GiB "
         f"({single_peak} bytes); proof sha256 {single_digest}")
-    phase_upload_routes(pi)
     for name in PATH_KERNELS:
         if paths["main"][name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
@@ -986,22 +1268,25 @@ def main():
         f"(global-scratch kernel on the same plans: "
         f"{sum(r['launches'] * r['global_ms'] for r in table_b.values()):.4f} ms)")
 
-    log("phase 6: stwo framing")
+    phase("phase 5b: every AIR component, the witnesses of tests/golden/witnesses.json")
+    paths["allops"], _ = phase_witnesses(gen, load_witnesses())
+
+    phase("phase 6: stwo framing")
     phase_test_scale(program, "stwo", "fib40_stwo_proof_sha256.json")
     paths["stwo"], _, _ = prove_full(pi, config.STWO_FRAMING_96_BITS, "fib-100k stwo",
                                      runs=("first",))
     if paths["stwo"]["wtape_run_plan"] <= 0:
         raise AssertionError("kernel wtape_run_plan never launched on the stwo path")
 
-    log("phase 7: command line")
+    phase("phase 7: command line")
     with tempfile.TemporaryDirectory() as tmp:
         paths["cli"] = phase_cli(tmp)
 
-    log("phase 8: chained segments, two workers on the card")
+    phase("phase 8: chained segments, two workers on the card")
     phase_segments_test_scale()
     paths["segments"] = phase_segments_full()
 
-    log("phase 9: the row-sharded prover")
+    phase("phase 9: the row-sharded prover")
     phase_sharded_test_scale()
     paths["sharded"] = phase_sharded_full(single_digest, single_peak)
 
@@ -1039,6 +1324,7 @@ def main():
     if loaded:
         raise AssertionError(f"modules of JAX or of the JAX package were loaded: {loaded}")
     log("no module of jax or cairo_m_tpu was loaded")
+    phase("all phases passed")
     log(f"card: {card_line()}")
     log(json.dumps(summary))
     log(json.dumps({"ok": True, "device": {

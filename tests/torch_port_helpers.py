@@ -12,8 +12,10 @@ import contextlib
 import hashlib
 import importlib
 import json
+import os
 
 import numpy as np
+import pytest
 import torch
 
 P = (1 << 31) - 1
@@ -43,23 +45,33 @@ def to_np(t) -> np.ndarray:
         else t.cpu().numpy().astype(np.uint32)
 
 
+TEST_SCALE = (10, 8)  # (rc_big_bits, bitwise_log) of set_test_scale
+PRODUCTION_SCALE = (20, 18)
+
+
 @contextlib.contextmanager
-def both_at_test_scale():
-    """Shrink the preprocessed tables of BOTH packages (each has its own
-    ProtocolScale); restore the scales they had afterwards, so the context
-    nests."""
+def both_at_scale(scale):
+    """Set the preprocessed tables of BOTH packages (each has its own
+    ProtocolScale) to ``scale`` = (rc_big_bits, bitwise_log); restore the
+    scales they had afterwards, so the context nests."""
     from cairo_m_tpu.prover import config as rcfg
     from cairo_m_tpu_torch.prover import config as tcfg
 
     saved = [(cfg, cfg.SCALE.key()) for cfg in (rcfg, tcfg)]
     for cfg, _ in saved:
-        cfg.set_test_scale(rc_big_bits=10, bitwise_log=8)
+        cfg.SCALE.rc_big_bits, cfg.SCALE.bitwise_log = scale
     try:
         yield
     finally:
         for cfg, (rc_big_bits, bitwise_log) in saved:
             cfg.SCALE.rc_big_bits = rc_big_bits
             cfg.SCALE.bitwise_log = bitwise_log
+
+
+def both_at_test_scale():
+    """Shrink the preprocessed tables of both packages (set_test_scale(10,
+    8)) for the duration of the context."""
+    return both_at_scale(TEST_SCALE)
 
 
 def configs(framing="native"):
@@ -144,15 +156,16 @@ def reference_fib40_segment_digests():
         ]
 
 
-def cross_verify(rproof, tproof):
+def cross_verify(rproof, tproof, cfgs=None):
     """Each package's verifier accepts the other's proof, after a round
-    trip through JSON (call at test scale)."""
+    trip through JSON; ``cfgs`` = (reference, port) configs, by default
+    `configs()` (call at test scale)."""
     from cairo_m_tpu.prover.prove import Proof as RProof
     from cairo_m_tpu.prover.verify import verify_cairo_m as r_verify
     from cairo_m_tpu_torch.prover.prove import Proof
     from cairo_m_tpu_torch.prover.verify import verify_cairo_m
 
-    rcfg, tcfg = configs()
+    rcfg, tcfg = cfgs or configs()
     assert r_verify(RProof.from_json_obj(json.loads(proof_json(tproof))), rcfg)
     assert verify_cairo_m(
         Proof.from_json_obj(json.loads(proof_json(rproof))), tcfg, device="cpu"
@@ -270,3 +283,250 @@ def wide_sum_plan(n_bank: int):
     total = ops.etree_sum(terms)[0]
     plan = wtape.schedule_wide(rec, [total, ops.bmul(total, rec.dyn_const("k"))])
     return plan, plan.const_values({"k": 123456789})
+
+
+# ---------------------------------------------------------------------------
+# Witnesses: programs whose runs make every AIR component live.  Their
+# sources, arguments and scales are plain data in tests/golden/witnesses.json
+# (the JAX package's own test programs, copied, and one program assembled
+# from the ISA's instructions), which chip_smoke.py reads too.
+# ---------------------------------------------------------------------------
+
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+
+with open(os.path.join(GOLDEN_DIR, "witnesses.json")) as _f:
+    WITNESSES = json.load(_f)
+
+SCALES = {"test": TEST_SCALE, "production": PRODUCTION_SCALE}
+
+
+def witness_scale(name):
+    """Context: both packages at the witness's protocol scale."""
+    return both_at_scale(SCALES[WITNESSES[name]["scale"]])
+
+
+def witness_program(package: str, name: str):
+    """The witness's Program, compiled by (or loaded with) ``package``'s own
+    compiler and ISA classes."""
+    w = WITNESSES[name]
+    if "program" in w:
+        Program = importlib.import_module(f"{package}.isa.program").Program
+        return Program.from_json(json.dumps(w["program"]))
+    compile_cairo = importlib.import_module(f"{package}.compiler").compile_cairo
+    return compile_cairo("\n".join(w["source"]) + "\n").program
+
+
+def witness_config(package: str, name: str, framing="native"):
+    """test_config(8, 2) at test scale; REGULAR_96_BITS at production."""
+    cfg = importlib.import_module(f"{package}.prover.config")
+    if WITNESSES[name]["scale"] == "production":
+        assert framing == "native"
+        return cfg.REGULAR_96_BITS
+    return cfg.test_config(n_queries=8, pow_bits=2, framing=framing)
+
+
+def reference_witness_input(name):
+    """Reference ProverInput of the witness via the Python VM + adapter
+    (call at the witness's scale: the clock range check reads it)."""
+    from cairo_m_tpu.isa.abi_codec import InputValue
+    from cairo_m_tpu.prover.adapter.adapter import import_from_runner_output
+    from cairo_m_tpu.vm.runner import run_cairo_program
+
+    res = run_cairo_program(witness_program("cairo_m_tpu", name), "main",
+                            [InputValue.number(a) for a in WITNESSES[name]["args"]])
+    return import_from_runner_output(res.vm.segments[0], res.public_address_ranges)
+
+
+def port_native_witness_input(name):
+    """The port's own ProverInput of the witness: its compiler, native VM
+    core and adapter."""
+    from cairo_m_tpu_torch.prover.adapter.native_import import native_prover_input
+
+    program = witness_program("cairo_m_tpu_torch", name)
+    return native_prover_input(program, "main", call_slots(program, WITNESSES[name]["args"]))
+
+
+def call_slots(program, args):
+    """Scalar arguments of ``main`` in the call-slot encoding the native
+    VM takes: a felt is one slot, a u32 two 16-bit limbs (low first)."""
+    out = []
+    for p, a in zip(program.get_entrypoint("main").params, args, strict=True):
+        out += [a & 0xFFFF, a >> 16] if p.ty.kind == "u32" else [a]
+    return out
+
+
+def golden_file(name, framing="native"):
+    kind = "production" if WITNESSES[name]["scale"] == "production" else "proof"
+    stwo = "_stwo" if framing == "stwo" else ""
+    return os.path.join(GOLDEN_DIR, f"{name}{stwo}_{kind}_sha256.json")
+
+
+def golden_digest(name, framing="native"):
+    with open(golden_file(name, framing)) as f:
+        return json.load(f)["sha256"]
+
+
+def reference_witness_proof(name, framing="native"):
+    """The reference's proof of the witness (Python VM + adapter) at its
+    scale and config: the proof whose digest golden_file(name, framing)
+    records."""
+    from cairo_m_tpu.prover.prove import prove_cairo_m
+
+    with witness_scale(name):
+        return prove_cairo_m(reference_witness_input(name),
+                             witness_config("cairo_m_tpu", name, framing))
+
+
+def cross_reject(proofs, cfgs):
+    """Each package's verifier rejects each package's proof at the OODS
+    check (the proofs of a component whose constraints exceed the
+    composition's degree: tests/test_torch_plans.py DEGREE_4)."""
+    from cairo_m_tpu.prover.prove import Proof as RProof
+    from cairo_m_tpu.prover.verify import VerificationError as RError
+    from cairo_m_tpu.prover.verify import verify_cairo_m as r_verify
+    from cairo_m_tpu_torch.prover.prove import Proof
+    from cairo_m_tpu_torch.prover.verify import VerificationError, verify_cairo_m
+
+    rcfg, tcfg = cfgs
+    for proof in proofs:
+        obj = json.loads(proof_json(proof))
+        with pytest.raises(RError, match="composition polynomial mismatch at OODS"):
+            r_verify(RProof.from_json_obj(obj), rcfg)
+        with pytest.raises(VerificationError,
+                           match="composition polynomial mismatch at OODS"):
+            verify_cairo_m(Proof.from_json_obj(obj), tcfg, device="cpu")
+
+
+def assert_same_data(a, b, path="input"):
+    """Two values built by the two packages (dataclasses, dicts, sequences,
+    NumPy arrays, ints) hold the same data, field by field."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(a):
+        assert type(a).__name__ == type(b).__name__, path
+        for f in dataclasses.fields(a):
+            assert_same_data(getattr(a, f.name), getattr(b, f.name), f"{path}.{f.name}")
+    elif isinstance(a, dict):
+        assert isinstance(b, dict) and sorted(a) == sorted(b), path
+        for k in a:
+            assert_same_data(a[k], b[k], f"{path}[{k!r}]")
+    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape, path
+        np.testing.assert_array_equal(a.astype(np.int64), b.astype(np.int64), err_msg=path)
+    elif isinstance(a, (list, tuple)):
+        assert isinstance(b, (list, tuple)) and len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_same_data(x, y, f"{path}[{i}]")
+    else:
+        assert a == b, path
+
+
+class WitnessFixtures:
+    """Class-scoped inputs of the witness ``name`` (set by the subclass),
+    built with both packages at the witness's scale."""
+
+    name = None
+    framing = "native"
+
+    @pytest.fixture(scope="class", autouse=True)
+    def _scale(self):
+        with witness_scale(self.name):
+            yield
+
+    @pytest.fixture(scope="class")
+    def ref_input(self, _scale):
+        return reference_witness_input(self.name)
+
+    @pytest.fixture(scope="class")
+    def port_input(self, ref_input):
+        """The reference's input carried over as plain data."""
+        from cairo_m_tpu_torch.prover.adapter.adapter import from_reference_prover_input
+
+        return from_reference_prover_input(ref_input)
+
+    @pytest.fixture(scope="class")
+    def native_input(self, _scale):
+        return port_native_witness_input(self.name)
+
+    def cfgs(self):
+        return tuple(witness_config(pkg, self.name, self.framing)
+                     for pkg in ("cairo_m_tpu", "cairo_m_tpu_torch"))
+
+
+class WitnessInputChecks(WitnessFixtures):
+    """The witness's prover input, constraint level (no commitment)."""
+
+    def test_traces_identical(self, ref_input, port_input):
+        """Every component's trace columns, bit for bit, and its size."""
+        from cairo_m_tpu.prover.components.registry import ComponentSet as RComponentSet
+        from cairo_m_tpu.prover.relations import Relations as RRelations
+        from cairo_m_tpu_torch.prover.components.registry import ComponentSet
+        from cairo_m_tpu_torch.prover.relations import Relations
+
+        rcomps, tcomps = RComponentSet(RRelations()), ComponentSet(Relations())
+        rcomps.write_traces(ref_input)
+        tcomps.write_traces(port_input)
+        for r, t in zip(rcomps.all, tcomps.all, strict=True):
+            assert (t.name, t.log_size, t.zero_witness) == (r.name, r.log_size, r.zero_witness)
+            assert len(t.trace_rows) == len(r.trace_rows), t.name
+            for k, (x, y) in enumerate(zip(r.trace_rows, t.trace_rows)):
+                np.testing.assert_array_equal(np.asarray(y), np.asarray(x),
+                                              err_msg=f"{t.name} column {k}")
+
+    def test_live_components(self, port_input):
+        """The witness keeps busy exactly the components that
+        tests/golden/witnesses.json names for it."""
+        from cairo_m_tpu_torch.prover.components.registry import ComponentSet
+        from cairo_m_tpu_torch.prover.relations import Relations
+
+        comps = ComponentSet(Relations())
+        comps.write_traces(port_input)
+        live = [c.name for c in comps.all if not c.zero_witness]
+        assert live == WITNESSES[self.name]["live"]
+
+    def test_constraints_hold_in_both_packages(self, ref_input, port_input):
+        from cairo_m_tpu.prover import debug_tools as rdebug
+        from cairo_m_tpu_torch.prover import debug_tools
+
+        assert rdebug.assert_constraints(ref_input, raise_on_failure=False) == []
+        assert debug_tools.assert_constraints(port_input, raise_on_failure=False) == []
+        assert rdebug.relation_tracker(ref_input) == {}
+        assert debug_tools.relation_tracker(port_input) == {}
+
+    def test_native_input_equals_reference_input(self, port_input, native_input):
+        """The port's compiler + native VM core + adapter give the input the
+        reference's Python VM + adapter gave, field by field."""
+        assert_same_data(port_input, native_input)
+
+
+class WitnessProofChecks(WitnessFixtures):
+    """The port's proof of the witness (its own compiler, native VM and
+    adapter) on the CPU, held to the reference."""
+
+    @pytest.fixture(scope="class")
+    def port_proof(self, native_input):
+        from cairo_m_tpu_torch.prover.prove import prove_cairo_m
+
+        return prove_cairo_m(native_input, self.cfgs()[1], device="cpu")
+
+    def test_port_proof_matches_golden(self, port_proof):
+        assert proof_sha256(port_proof) == golden_digest(self.name, self.framing)
+
+    @pytest.mark.slow
+    def test_reference_proof_byte_equal_and_cross_verified(self, port_proof):
+        """The live reference proof is the golden, byte-equal to the port's,
+        and each package verifies the other's; where witnesses.json records
+        a fault of both packages ("verifies": false), each package rejects
+        both proofs instead."""
+        rproof = reference_witness_proof(self.name, self.framing)
+        assert proof_sha256(rproof) == golden_digest(self.name, self.framing)
+        assert proof_json(port_proof) == proof_json(rproof)
+        if WITNESSES[self.name].get("verifies", True):
+            cross_verify(rproof, port_proof, self.cfgs())
+        else:
+            cross_reject((rproof, port_proof), self.cfgs())
+
+
+class WitnessChecks(WitnessInputChecks, WitnessProofChecks):
+    pass
