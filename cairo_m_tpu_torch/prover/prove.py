@@ -27,6 +27,7 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..parallel.sharded import active_mesh, local_len, maybe_shard
+from . import observe
 from .components.registry import ComponentSet
 from .config import REGULAR_96_BITS, SCALE
 from .public_data import PublicData
@@ -174,13 +175,20 @@ def build_sample_points(comps: ComponentSet, z, z_prevs, pre_owners):
 
 
 def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
-                  device=DEFAULT_DEVICE):
+                  device=DEFAULT_DEVICE, observer=None):
     """Prove ``prover_input`` on ``device`` (a torch device or its name; the
     card unless the caller names another, and an error without one).
 
     Under ``prover_mesh`` (parallel/sharded.py) this rank proves on its
     share of every stack, on the mesh's device; every rank returns the
-    same proof, byte-equal to the single-device proof."""
+    same proof, byte-equal to the single-device proof.
+
+    ``observer``: an object with ``begin(stage, comp)`` and ``end(stage,
+    comp, out)``, called around each live component's interaction trace
+    (``out`` its stacked limb columns, row order) and composition
+    contribution (``out`` its weighted 4-limb evaluations): the per-
+    component profile (`cairo_m_tpu_torch.profile components`).  With
+    ``CM_DEBUG_PHASES`` set, one line a phase (`observe`)."""
     device = resolve_device(device)
     mesh = active_mesh()
     if mesh is not None and device != mesh.device:
@@ -190,6 +198,12 @@ def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
     # the row-order -> FFT-order steps below are the single device's
     to_fft = domain.to_fft_order if mesh is None else (lambda st: st)
     t0 = time.time()
+    debug = observe.phases_on()
+
+    def _dbg(msg):
+        if debug:
+            print(f"[prove +{time.time() - t0:7.2f}s] {msg}", flush=True)
+
     channel = config.make_channel()
     config.mix_into(channel)
 
@@ -198,10 +212,12 @@ def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
 
     relations = Relations()
     comps = ComponentSet(relations)
+    _dbg("public data")
     # each component's rows go to the device the moment they exist; table
     # multiplicities are scatter-adds over those uploaded stacks
     counter = framework.TableCounter(relations, *SCALE.key(), device)
     uploaded = {}
+    upload_s = {"upload": 0.0, "count": 0.0}
 
     def _upload(comp):
         dev = getattr(comp, "device_stack", None)
@@ -211,22 +227,29 @@ def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
             return
         if comp.zero_witness:
             return
+        t = time.time()
         if mesh is None:
             st = upload_rows(comp.trace_rows, device)
         else:
             st = upload_fft_share(comp.trace_rows, device)
         uploaded[id(comp)] = st
+        upload_s["upload"] += time.time() - t
+        t = time.time()
         counter.add(comp, st)
+        upload_s["count"] += time.time() - t
 
     comps.write_traces(
         prover_input, on_component=_upload, table_counter=counter
     )
+    _dbg(f"write_traces (host, uploads pipelined; upload "
+         f"{upload_s['upload']:.2f}s count {upload_s['count']:.2f}s)")
 
     scheme = pcs.CommitmentSchemeProver(channel, config)
 
     # phase 0: preprocessed (cached; only the root mixing runs per proof)
     _, pre_owners = comps.preprocessed_columns()
     scheme.commit_phase(preprocessed_phase(comps, config, device))
+    _dbg("phase0 commit")
 
     # claim: mix log sizes; phase 1: trace
     for comp in comps.all:
@@ -246,6 +269,7 @@ def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
             for comp, st in zip(comps.all, trace_stacks)
         ]
     )
+    _dbg("phase1 trace commit")
     t_trace = time.time()
 
     # interaction PoW
@@ -283,9 +307,13 @@ def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
         else:
             pre_stack = torch.zeros((0, local_len(n)), dtype=torch.int64,
                                     device=device)
+        if observer is not None:
+            observer.begin("interaction", comp)
         stacked, claimed = framework.gen_interaction_trace_device(
             comp, st, pre_stack
         )
+        if observer is not None:
+            observer.end("interaction", comp, stacked)
         claimed_dev.append(claimed)
         inter_entries.append((comp.log_size, to_fft(stacked)))
     # one batched device->host pull for every non-zero component's sum
@@ -300,8 +328,10 @@ def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
         claimed_sums.append(
             (0, 0, 0, 0) if ci in zero_claims else tuple(int(x) for x in next(it))
         )
+    _dbg("interaction traces")
     channel.mix_felts(claimed_sums)
     scheme.commit(inter_entries)
+    _dbg("phase2 commit")
     t_inter = time.time()
 
     # composition
@@ -311,16 +341,19 @@ def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
         comps.all, relations,
         scheme.phases[0], scheme.phases[1], scheme.phases[2],
         pre_owner_map, claimed_sums, composition_coeff,
-        blowup=config.fri_config.log_blowup_factor,
+        blowup=config.fri_config.log_blowup_factor, observer=observer,
     )
+    _dbg("composition computed")
     # composition is a "trace" of log comp_elog committed with blowup
     scheme.commit([(comp_elog, torch.stack(comp_evals))])
+    _dbg("phase3 commit")
     t_comp = time.time()
 
     # OODS
     z, z_prevs = oods_point_and_prevs(channel, comps.log_sizes())
     sample_points = build_sample_points(comps, z, z_prevs, pre_owners)
     pcs_proof = scheme.prove_values(sample_points)
+    _dbg("pcs prove_values")
     t_end = time.time()
 
     if timing is not None:

@@ -593,14 +593,16 @@ def _vanishing_row(l: int, elog: int, device: torch.device):
 
 def compute_composition(
     components, relations, pre_phase, trace_phase, inter_phase,
-    pre_owner_map, claimed_sums, random_coeff, blowup=1,
+    pre_owner_map, claimed_sums, random_coeff, blowup=1, observer=None,
 ):
     """-> (composition 4-limb tuple in fft order, log size max+blowup).
 
     The three phases are `pcs.CommitmentPhase` objects whose FFT-order
     extended column stacks (``stacked_ext``, computed once during commit)
     are reused directly — no per-component LDE.  ``pre_owner_map``:
-    ``{id(comp): (global pre column start, count)}``.
+    ``{id(comp): (global pre column start, count)}``.  ``observer``: see
+    `prove.prove_cairo_m`; ``end`` gets each live component's weighted
+    contribution.
     """
     counts = [count_constraints(c) for c in components]
     max_elog = max(c.log_size for c in components) + blowup
@@ -621,6 +623,8 @@ def compute_composition(
             ti += comp.n_trace_cols
             ii += 4 * comp.n_interaction_cols()
             continue
+        if observer is not None:
+            observer.begin("composition", comp)
         plan = composition_plan(comp, relations)
         consts = plan.const_values(
             _DynResolver(
@@ -661,6 +665,8 @@ def compute_composition(
         # accumulate weighted contributions per evaluation domain; the
         # ifft+embed runs ONCE per elog instead of once per component
         weighted = qmul(contrib, w4)
+        if observer is not None:
+            observer.end("composition", comp, weighted)
         acc = by_elog.get(elog)
         by_elog[elog] = (
             weighted if acc is None
@@ -668,6 +674,14 @@ def compute_composition(
         )
         ti += comp.n_trace_cols
         ii += 4 * comp.n_interaction_cols()
+    return composition_from_sums(by_elog, max_elog), max_elog
+
+
+def composition_from_sums(by_elog: dict, max_elog: int):
+    """The weighted contributions summed per evaluation domain
+    ``{elog: 4-limb evaluations}`` -> the composition's 4-limb evaluations
+    on the 2^max_elog domain (FFT order): one ifft + embed per domain, one
+    fft of the sum."""
     total = None
     for elog in sorted(by_elog, reverse=True):
         co = _evals_to_coeffs(by_elog[elog], elog, max_elog)
@@ -675,8 +689,7 @@ def compute_composition(
             m31.add(a, b) for a, b in zip(total, co)
         )
     ev4 = fft.fft(torch.stack(total), max_elog)
-    comp_evals = tuple(ev4[k] for k in range(4))
-    return comp_evals, max_elog
+    return tuple(ev4[k] for k in range(4))
 
 
 def _qpow_scalar(a, e: int):

@@ -39,6 +39,7 @@ import torch
 from ...field import m31
 from ...field.qm31 import qadd, qmul, qmul_m31, qmul_np
 from ...parallel import sharded
+from .. import observe
 from . import domain, merkle, stwo_merkle
 
 P = (1 << 31) - 1
@@ -311,7 +312,9 @@ class FriProver:
         # twiddle
         y_inv = sharded.share_of(_fri_tw_dev(self.max_log, 0, device), top,
                                  self.max_log)
+        micro = observe.Micro("fri", device)
         layer = _first_fold(top, y_inv, a0sq, alpha0)  # (4, n/2)
+        micro.mark(f"first fold {int(top.shape[0])} cols @ {self.max_log}")
         k = self.max_log - 1
         on_host = False
         while k > last:
@@ -372,6 +375,7 @@ class FriProver:
                              sharded.share_of(_fri_tw_dev(k, 0, device), stack, k),
                              asq)
                 layer = _fold_line(layer, x_inv, alpha, extra)
+            micro.mark(f"layer k={k} host={on_host}")
             k -= 1
 
         # last layer is sent in commit order (the verifier's convention)

@@ -67,7 +67,8 @@ class MerkleTree:
     on the host: levels == [], host_base == 0 and host_chain covers every
     level (the FRI tail layers)."""
 
-    def __init__(self, columns, defer_top: bool = False, log_size: int = None):
+    def __init__(self, columns, defer_top: bool = False, log_size: int = None,
+                 micro=None):
         """columns: a stacked (n_cols, n) NumPy array or int64 tensor.
 
         ``defer_top=True``: don't pull the top levels yet — the caller
@@ -78,7 +79,10 @@ class MerkleTree:
         (parallel/sharded.py) a tensor of fewer than 2^log_size lanes is
         this rank's commit-order block: the rank builds the subtree over
         it, and the levels from `host_base` up are gathered from every rank
-        (`finish_host_shared`) and finished on the host."""
+        (`finish_host_shared`) and finished on the host.
+
+        ``micro``: an `observe.Micro` that times the leaves and the
+        pyramid of a device tree (``CM_DEBUG_MICRO``)."""
         stacked = columns
         n_cols, n = int(stacked.shape[0]), int(stacked.shape[1])
         self.columns = stacked
@@ -108,7 +112,11 @@ class MerkleTree:
             (8, 2 * n - 1), dtype=torch.int64, device=stacked.device
         )
         blake2s.hash_leaves(stacked.contiguous(), kp, out=self.packed[:, :n])
+        if micro is not None:
+            micro.mark(f"merkle leaves k={n_cols} cl={self.log_size}")
         blake2s.merkle_pyramid(self.packed)
+        if micro is not None:
+            micro.mark(f"merkle pyramid cl={self.log_size}")
         local_log = n.bit_length() - 1
         offs = [blake2s.pyramid_offset(n, l) for l in range(local_log + 2)]
         self.levels = [self.packed[:, a:b] for a, b in zip(offs, offs[1:])]

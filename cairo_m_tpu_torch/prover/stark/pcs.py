@@ -36,6 +36,7 @@ import torch
 
 from .channel import Blake2sChannel
 from ...parallel import sharded
+from .. import observe
 from .stwo_channel import StwoBlake2sChannel
 
 from . import domain, fft, fri, merkle, quotients, stwo_merkle
@@ -109,24 +110,29 @@ class CommitmentPhase:
         self.stacked_ext = {}  # commit_log -> (k, 2n) device, FFT order
         self.trees = {}
         stacked_commit = {}  # commit_log -> (k, 2n) device, commit order
+        micro = (observe.Micro("micro", columns_fft[0][1].device)
+                 if columns_fft else None)
         for l in sorted(groups, reverse=True):
             cl = l + log_blowup
             pieces = groups[l]
             stacked = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=0)
             coeffs, ext_cols, commit_cols = _commit_pipeline(stacked, l, cl)
+            micro.mark(f"fft k={int(stacked.shape[0])} log={l}->{cl}")
             self.stacked_coeffs[l] = coeffs
             self.stacked_ext[cl] = ext_cols
             if framing == "stwo":
                 stacked_commit[cl] = commit_cols
             else:
                 self.trees[cl] = merkle.MerkleTree(
-                    commit_cols, defer_top=True, log_size=cl
+                    commit_cols, defer_top=True, log_size=cl, micro=micro
                 )
         # host seconds spent building the stwo tree; a proof adds them to
         # its own count once (`CommitmentSchemeProver.commit_phase`)
         self.host_tree_s = 0.0
         if framing == "stwo":
             self.stwo_tree = self._stwo_tree(stacked_commit, log_blowup)
+            if micro is not None:
+                micro.mark("stwo mixed-degree tree (host)")
             return
         # ONE device->host pull of every tree's upper levels (hashed on the
         # device; the host only mirrors them)
@@ -150,6 +156,7 @@ class CommitmentPhase:
                 else:
                     tree.finish_host_shared(tops[:, :, off : off + m])
                 off += m
+            micro.mark("top pull + host mirror")
 
     def _stwo_tree(self, stacked_commit, log_blowup: int):
         """ONE device->host pull of every commit-order stack, then one
@@ -305,7 +312,17 @@ class CommitmentSchemeProver:
         return len(self.phases) - 1
 
     def prove_values(self, sample_points) -> PcsProof:
-        """sample_points: per phase, per column, list of QM31 circle points."""
+        """sample_points: per phase, per column, list of QM31 circle points.
+        With ``CM_DEBUG_PHASES`` set, one line a step (`observe`)."""
+        debug = observe.phases_on()
+        t0 = time.time()
+
+        def _t(msg):
+            nonlocal t0
+            if debug:
+                print(f"  [pcs +{time.time() - t0:6.2f}s] {msg}", flush=True)
+            t0 = time.time()
+
         channel = self.channel
         for phase, pts in zip(self.phases, sample_points):
             assert len(pts) == len(phase.trace_logs), (
@@ -325,6 +342,7 @@ class CommitmentSchemeProver:
         for phase, h in zip(self.phases, handles):
             vals, off = phase.sample_finish(h, flat, off)
             sampled.append(vals)
+        _t("sample")
         channel.mix_felts(
             [v for phase_vals in sampled for col in phase_vals for v in col]
         )
@@ -354,14 +372,17 @@ class CommitmentSchemeProver:
             (l, quotients.quotient_column_device(l, batches, stacks))
             for l, batches in sorted(grouped.items(), reverse=True)
         ]
+        _t("quotients (dispatch)")
         # 3. FRI commit
         fri_prover = fri.FriProver(
             channel, quotient_cols, self.config.fri_config,
             framing=self.config.framing,
         )
+        _t("fri commit")
         # 4. PoW
         nonce = channel.grind(self.config.pow_bits)
         channel.mix_u64(nonce)
+        _t("pow grind")
         # 5. queries (the channel's draw loops forever if it cannot find
         # n_queries distinct positions)
         max_log = fri_prover.max_log
@@ -385,6 +406,7 @@ class CommitmentSchemeProver:
                 decommitments.append(stwo_merkle.StwoPhaseOpening(queried, dec))
             fri_roots, fri_openings = fri_prover.stwo_decommit(queries)
             self.host_tree_s += fri_prover.host_tree_s + time.perf_counter() - t
+            _t("decommit (stwo framing)")
             return PcsProof(
                 [p.roots() for p in self.phases],
                 sampled,
@@ -401,14 +423,18 @@ class CommitmentSchemeProver:
                 pairs = fri.pair_positions(queries, max_log, cl)
                 plans.append(merkle.DecommitPlan(tree, pairs))
                 plan_keys.append((pi_, cl))
+        _t("decommit: phase plans")
         fri_roots, fri_plans = fri_prover.decommit_plans(queries)
+        _t("decommit: fri plans")
         decs = merkle.finish_plans(plans + fri_plans)
+        _t("decommit: pull + finish")
         decommitments = [{} for _ in self.phases]
         for (pi_, cl), dec in zip(plan_keys, decs[: len(plans)]):
             decommitments[pi_][cl] = dec
         fri_proof = fri.FriProof(
             fri_roots, decs[len(plans) :], fri_prover.last_layer
         )
+        _t("decommit (phases + fri)")
         return PcsProof(
             [p.roots() for p in self.phases],
             sampled,

@@ -14,6 +14,7 @@ Run from the repository root on a machine with one CUDA card:
                                      # witness upload routes
     python3 chip_smoke.py --nccl     # phases 1, 5 and 9(c) only, on a
                                      # machine with two cards or more
+    python3 chip_smoke.py --fib1m    # phases 1 and 10: the largest proof
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -23,7 +24,7 @@ Phases (each raises on failure, so the script exits non-zero):
    at the Merkle shapes of the main path, plus a few lanes vs ``hashlib``;
    timed beside its bound at the shapes of PERF.md's kernel table.  BLAKE2s
    pyramid kernel vs its plain version on the card, bit for bit, for every
-   tree of 2^1 .. 2^22 leaves, and vs the level-by-level route it replaced
+   tree of 2^1 .. 2^24 leaves, and vs the level-by-level route it replaced
    (one leaf-kernel launch over a copied message stack per level), which is
    timed beside it; one root vs ``hashlib``; whole Merkle trees built on the
    card vs on the CPU (root and decommitment); the host's seconds for
@@ -67,15 +68,15 @@ Phases (each raises on failure, so the script exits non-zero):
    its warm prove ran must have a launch shape (b) checked;
 6. the stwo framing: (a) fib-40 at test scale on the card and on the CPU,
    byte-equal and matching ``tests/golden/fib40_stwo_proof_sha256.json``;
-   (b) fib-100k at ``STWO_FRAMING_96_BITS`` (production tables) proved once
+   (b) fib(10,000) at ``STWO_FRAMING_96_BITS`` (production tables) proved once
    and verified on the card; the wide-tape kernel must have launched (the
    stwo trees are hashed on the host, so the BLAKE2s kernel is expected to
    launch 0 times);
 7. the command line, in subprocesses: compile fibonacci; prove
-   fibonacci(10,000) with ``--max-steps 50000`` (two segments,
-   ``REGULAR_96_BITS``, production tables) with ``--verify``; ``verify``
-   the file; prove a small run under ``--framing stwo`` and ``verify`` it;
-   every exit code 0 and every segment verified;
+   fibonacci(2,000) with ``--max-steps 10000`` (two segments,
+   ``REGULAR_96_BITS``, production tables) with ``--verify`` and ``verify``
+   the file, and beside that chain prove a small run under ``--framing
+   stwo`` and ``verify`` it; every exit code 0 and every segment verified;
 8. chained segments through ``prove_segments_multiprocess`` with two
    workers on ``cuda:0``: (a) fib-40 cut at 100 steps at test scale, every
    segment's proof digest equal to ``tests/golden/fib40_segments_sha256.json``;
@@ -95,7 +96,20 @@ Phases (each raises on failure, so the script exits non-zero):
    Under ``--sharded`` only, the two witness upload routes are timed on the
    fib-100k witness (``prove.upload_rows``: bytes and copy seconds;
    ``colpack.upload_stack``: host classify seconds, packed bytes, copy and
-   unpack seconds) and must rebuild the same stacks.
+   unpack seconds) and must rebuild the same stacks;
+10. the reference's largest single proof, fibonacci(1,000,000) = 8,000,010
+   cycles in one segment at ``REGULAR_96_BITS``: (a) ``python -m
+   cairo_m_tpu_torch.profile prove --iters 1000000 --runs cold,warm
+   --verify`` in a fresh process that cannot import JAX (a clean peak
+   memory, a true cold start): the proof's digest equal to
+   ``tests/golden/fib1m_card_proof_sha256.json`` (made on the card, accepted
+   by the reference's verifier), verified by the port; its cold and warm
+   seconds, cycles/s, phases, launches, peak device memory and log sizes,
+   and the warm proof's ``CM_DEBUG_PHASES`` lines are printed; (b) the
+   kernels at its sizes: the wide-tape kernels on every plan of the
+   fib(1M) witness at its own size (as phase 3), the leaf kernel on every
+   leaf shape of the warm proof beyond 2^20 lanes, each bit for bit against
+   plain and timed; every launch shape of the warm proof checked.
 
 Launch counts are read per path: zeroed just before each path is driven
 and read just after (the segment, command-line and sharded paths count
@@ -106,7 +120,6 @@ JAX and nothing of the JAX package ``cairo_m_tpu``, and says so before its
 last lines.
 """
 
-import contextlib
 import hashlib
 import json
 import os
@@ -123,7 +136,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from cairo_m_tpu_torch.compiler import compile_cairo  # noqa: E402
-from cairo_m_tpu_torch import kernels  # noqa: E402
+from cairo_m_tpu_torch import kernels, profile  # noqa: E402
 from cairo_m_tpu_torch.hash import blake2s  # noqa: E402
 from cairo_m_tpu_torch.prover import config  # noqa: E402
 from cairo_m_tpu_torch.isa.program import Program  # noqa: E402
@@ -158,6 +171,7 @@ DEV = torch.device("cuda:0")
 TEST_SCALE = {"rc_big_bits": 10, "bitwise_log": 8}
 TEST_CONFIG = {"n_queries": 8, "pow_bits": 2}
 CHAIN_ITERS = 1_250_000  # fibonacci(1,250,000) = 10,000,010 cycles
+STWO_ITERS = 10_000  # phase 6(b): 80,010 cycles under the stwo framing
 SEGMENT_CAP = (1 << 20) - 1
 # the kernels every native-framing path must launch; the global-scratch
 # variant of the wide-tape kernel takes no plan of the prover today
@@ -263,7 +277,8 @@ BLAKE2S_TABLE = [(1, 1 << 21), (4, 1 << 20), (16, 1 << 20), (16, 1 << 14),
                  (64, 1 << 18), (512, 1 << 10), (1024, 1 << 5), (2048, 1 << 5),
                  (4096, 1 << 6)]
 BLAKE2S_MAIN = (4, 1 << 20)
-PYRAMID_TABLE = [1 << 21, 1 << 20, 1 << 14, 1 << 11, 1 << 9]  # leaf digests
+# leaf digests; 2^24 and 2^23: the largest trees of fib(1M) (phase 10)
+PYRAMID_TABLE = [1 << 24, 1 << 23, 1 << 21, 1 << 20, 1 << 14, 1 << 11, 1 << 9]
 PYRAMID_MAIN = 1 << 20
 WTAPE_TABLE = ["interaction range_check_20", "table count range_check_20",
                "composition range_check_20", "composition store_add_fp_imm",
@@ -719,27 +734,6 @@ def phase_witnesses_test_scale(witnesses):
     return jobs
 
 
-@contextlib.contextmanager
-def _cold_prover_caches():
-    """Set the prover's process-wide caches of recorded plans and of the
-    preprocessed tables' commitment aside, so that the first prove in the
-    context is cold but for the CUDA context, the kernels and the
-    twiddles; the entries set aside come back afterwards, so later phases
-    find what they found before."""
-    from cairo_m_tpu_torch.prover import prove as prove_mod
-
-    caches = (framework._PLAN_CACHE, prove_mod._PRE_PHASE_CACHE,
-              prove_mod._PRE_STACK_CACHE)
-    saved = [dict(c) for c in caches]
-    for c in caches:
-        c.clear()
-    try:
-        yield
-    finally:
-        for c, old in zip(caches, saved):
-            c.update(old)
-
-
 def phase_witnesses_production(inputs):
     """The production witnesses at REGULAR_96_BITS on the card: ``allops``
     cold and warm, then each other one once; every digest equal to the
@@ -749,7 +743,7 @@ def phase_witnesses_production(inputs):
     for name, (w, pi) in inputs.items():
         if name == "allops":
             torch.cuda.reset_peak_memory_stats()
-            with _cold_prover_caches():
+            with profile.cold_prover_caches():
                 launches, shapes, proof = prove_full(
                     pi, config.REGULAR_96_BITS, name,
                     rejected=not w.get("verifies", True))
@@ -880,18 +874,24 @@ def prove_full(pi, cfg, label, runs=("cold", "warm"), rejected=False):
     return launches, shapes, proof
 
 
-def _cli(*argv, timeout=900):
-    """Run the port's command line; raise unless it exits with 0."""
+def _cli(*argv, timeout=900, out=None):
+    """Run the port's command line; raise unless it exits with 0.  Its lines
+    go to ``out`` (a list) where given, else to the log."""
     t = time.time()
     res = subprocess.run(
         [sys.executable, "-m", "cairo_m_tpu_torch.cli", *argv],
         capture_output=True, text=True, cwd=REPO, timeout=timeout,
     )
-    log(f"  cli {argv[0]} ({time.time() - t:.2f} s, rc {res.returncode}):")
-    for line in (res.stdout + res.stderr).strip().splitlines():
-        log(f"    {line}")
+    lines = [f"  cli {argv[0]} ({time.time() - t:.2f} s, rc {res.returncode}):"]
+    lines += [f"    {line}" for line in (res.stdout + res.stderr).strip().splitlines()]
+    if out is None:
+        for line in lines:
+            log(line)
+    else:
+        out += lines
     if res.returncode != 0:
-        raise AssertionError(f"cli {' '.join(argv)} exited with {res.returncode}")
+        raise AssertionError(f"cli {' '.join(argv)} exited with {res.returncode}\n"
+                             + "\n".join(lines))
     return res
 
 
@@ -904,30 +904,51 @@ def _cli_launches(res):
     return total
 
 
+def _cli_chain(tmp, prog, framing, arg, max_steps, n_segments, check, lines):
+    """``prove`` then ``verify`` of one framing through the command line;
+    -> the prove's kernel launches."""
+    out = os.path.join(tmp, f"{framing}.json")
+    # no --device: the command line's default is the card
+    res = _cli("prove", prog, "--arguments", arg, "--max-steps", max_steps,
+               "--framing", framing, *check, "-o", out, out=lines)
+    launches = _cli_launches(res)
+    verified = [f"segment {i}: verified=True" for i in range(n_segments)]
+    if check and [l for l in res.stdout.splitlines() if "verified=" in l] != verified:
+        raise AssertionError(f"cli prove {framing}: not every segment verified")
+    res = _cli("verify", out, out=lines)
+    ok = [f"segment {i}: OK" for i in range(n_segments)] + ["proof verified"]
+    if res.stdout.strip().splitlines() != ok:
+        raise AssertionError(f"cli verify {framing}: {res.stdout!r}")
+    return launches
+
+
 def phase_cli(tmp):
-    """prove / verify through the command line, in subprocesses."""
+    """prove / verify through the command line, in subprocesses: the native
+    and the stwo prove -> verify chains run side by side (each is mostly
+    one process's cold start, or host-side stwo trees), each chain's lines
+    printed when it ends."""
+    from concurrent.futures import ThreadPoolExecutor
+
     src, prog = os.path.join(tmp, "fib.cm"), os.path.join(tmp, "fib.json")
     with open(src, "w") as f:
         f.write(FIB_SRC)
     _cli("compile", src, "-o", prog)
-    launches = {}
     # the stwo proof is checked by `verify` alone: its host-side
     # verification costs tens of seconds on the card's machine
-    for framing, arg, n_segments, check in (
-        ("native", "10000", 2, ["--verify"]), ("stwo", "100", 1, []),
-    ):
-        out = os.path.join(tmp, f"{framing}.json")
-        # no --device: the command line's default is the card
-        res = _cli("prove", prog, "--arguments", arg, "--max-steps", "50000",
-                   "--framing", framing, *check, "-o", out)
-        launches[framing] = _cli_launches(res)
-        verified = [f"segment {i}: verified=True" for i in range(n_segments)]
-        if check and [l for l in res.stdout.splitlines() if "verified=" in l] != verified:
-            raise AssertionError(f"cli prove {framing}: not every segment verified")
-        res = _cli("verify", out)
-        ok = [f"segment {i}: OK" for i in range(n_segments)] + ["proof verified"]
-        if res.stdout.strip().splitlines() != ok:
-            raise AssertionError(f"cli verify {framing}: {res.stdout!r}")
+    chains = {"native": ("2000", "10000", 2, ["--verify"]),
+              "stwo": ("100", "50000", 1, [])}
+    lines = {framing: [] for framing in chains}
+    with ThreadPoolExecutor(len(chains)) as pool:
+        futures = {framing: pool.submit(_cli_chain, tmp, prog, framing, *args,
+                                        lines[framing])
+                   for framing, args in chains.items()}
+        launches = {}
+        for framing, fut in futures.items():
+            try:
+                launches[framing] = fut.result()
+            finally:
+                for line in lines[framing]:
+                    log(line)
     log(f"  cli prove launches: {launches}")
     if (min(launches["native"][k] for k in PATH_KERNELS) <= 0
             or launches["stwo"]["wtape_run_plan"] <= 0):
@@ -1135,6 +1156,165 @@ def phase_sharded_full(single_digest, single_peak):
     return launches
 
 
+FIB1M_ITERS = 1_000_000  # fibonacci(1,000,000) = 8,000,010 cycles, one segment
+FIB1M_GOLDEN = "fib1m_card_proof_sha256.json"
+# kernel B's plans that fib(1M) runs at sizes no other phase gives them:
+# their plain version is timed too
+WTAPE_FIB1M_TABLE = ["composition store_add_fp_imm", "interaction store_add_fp_imm"]
+# a module run as `python -m` in a fresh interpreter that cannot import JAX
+# or the JAX package
+_NO_JAX_MODULE = """
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["cairo_m_tpu"] = None
+sys.path.insert(0, {repo!r})
+sys.argv = [{module!r}, *{argv!r}]
+try:
+    runpy.run_module({module!r}, run_name="__main__")
+finally:
+    loaded = [m for m, v in sys.modules.items()
+              if v is not None and m.split(".")[0] in ("jax", "cairo_m_tpu")]
+    if loaded:
+        raise SystemExit(f"modules of JAX or of the JAX package were loaded: {{loaded}}")
+"""
+
+
+def _parse_shapes(shapes: dict) -> dict:
+    """The profile's "name,*shape" keys -> (name, *shape) tuples."""
+    out = {}
+    for key, n in shapes.items():
+        name, *dims = key.split(",")
+        out[(name, *map(int, dims))] = n
+    return out
+
+
+def phase_fib1m_prove(tmp):
+    """(a) ``python -m cairo_m_tpu_torch.profile prove --iters 1000000 --runs
+    cold,warm --verify`` in a fresh process: its proof equal to the committed
+    card digest and verified; -> (its summary entry, the warm proof's
+    launch shapes)."""
+    torch.cuda.empty_cache()  # the child gets the card's memory
+    argv = ["prove", "--iters", str(FIB1M_ITERS), "--runs", "cold,warm",
+            "--verify", "--save-proof", tmp]
+    t = time.time()
+    res = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_MODULE.format(
+            repo=REPO, module="cairo_m_tpu_torch.profile", argv=argv)],
+        capture_output=True, text=True, cwd=REPO, timeout=900,
+    )
+    lines = res.stdout.strip().splitlines()
+    # everything but the JSON summary, which the lines below condense
+    for line in lines[:-1]:
+        log(f"    {line}")
+    if res.returncode != 0:
+        log(res.stderr[-4000:])
+        raise AssertionError(f"the profile command exited with {res.returncode}")
+    (entry,) = json.loads(lines[-1])["fib"]
+    want = _golden(FIB1M_GOLDEN)
+    with open(entry["saved"]) as f:
+        saved = hashlib.sha256(f.read().encode()).hexdigest()
+    log(f"  fib({FIB1M_ITERS}) in a fresh process, {time.time() - t:.1f} s: "
+        f"{entry['cycles']} cycles, native VM + adapter {entry['adapter_s']:.3f} s "
+        f"(host max RSS {entry['host_max_rss_gib']:.2f} GiB)")
+    for run, rec in entry["runs"].items():
+        log(f"  fib({FIB1M_ITERS}) {run}: {rec['seconds']:.3f} s, "
+            f"{rec['cycles_per_s']:.1f} cycles/s, peak device memory "
+            f"{rec['peak_device_bytes'] / 2**30:.2f} GiB ({rec['peak_device_bytes']} "
+            f"bytes), launches {rec['launches']}")
+    log(f"  fib({FIB1M_ITERS}) log sizes {json.dumps(entry['log_sizes'])}")
+    log(f"  fib({FIB1M_ITERS}) proof sha256 {entry['sha256']} "
+        f"({'equal to' if entry['sha256'] == want == saved else 'DIFFERENT from'} "
+        f"the committed card digest {want}); verified {entry['verified']} in "
+        f"{entry['verify_s']:.3f} s")
+    if entry["sha256"] != want or saved != want:
+        raise AssertionError("the fib(1M) proof differs from the committed digest")
+    if not entry["verified"]:
+        raise AssertionError("the fib(1M) proof did not verify")
+    if entry["cycles"] != 8_000_010 or max(entry["log_sizes"].values()) != 22:
+        raise AssertionError("fib(1M) is not the 8,000,010-cycle, 2^22-row run")
+    warm = entry["runs"]["warm"]
+    for name in PATH_KERNELS:
+        if warm["launches"][name] <= 0:
+            raise AssertionError(f"kernel {name} never launched in the warm fib(1M) proof")
+    return entry, _parse_shapes(warm["launch_shapes"])
+
+
+def phase_fib1m_kernels(gen, program, shapes, table_p, known=None):
+    """(b) the kernels at the sizes fib(1M) gives them: kernel B on every
+    plan of the fib(1M) witness (both variants, vs plain) but those of a
+    launch shape in ``known`` (phase 3's rows: the same plan at the same
+    size), the leaf kernel on every leaf shape of the warm proof beyond
+    2^20 lanes (vs plain), the pyramid's launches per tree (phase 2 checked
+    every size to 2^24); every launch shape of the warm proof must have
+    been checked.  -> kernel B's rows keyed by launch shape."""
+    known = known or {}
+    t = time.time()
+    pi = native_prover_input(program, "main", [FIB1M_ITERS])
+    log(f"  fib({FIB1M_ITERS}) native VM + adapter in this process: "
+        f"{time.time() - t:.3f} s")
+    jobs = [j for j in witness_plans(pi)
+            if wtape._launch_shape(j[1], j[2]) not in known]
+    del pi
+    log(f"  {len(jobs)} plans of the fib(1M) witness at sizes phase 3 did not check")
+    table = check_plans(jobs, gen, WTAPE_FIB1M_TABLE, require_smem=True)
+    unknown = [k for k in shapes if k[0].startswith("wtape")
+               and k[1:] not in table and k[1:] not in known]
+    if unknown:
+        raise AssertionError(f"the warm fib(1M) proof ran plans not checked: {unknown}")
+    for shape, row in table.items():
+        row["launches"] = shapes.get(("wtape_run_plan", *shape), 0)
+        if "plain_ms" in row:
+            log(f"    wtape {row['name']} n=2^{shape[-1].bit_length() - 1}: "
+                f"{row['ms']:.4f} ms (global-scratch kernel {row['global_ms']:.4f} ms), "
+                f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}), plain "
+                f"{row['plain_ms']:.4f} ms, launches per warm fib(1M) proof "
+                f"{row['launches']}")
+    trees = {}
+    for key, count in shapes.items():
+        if key[0] != "blake2s_leaves":
+            continue
+        k, n_words, n = key[1:]
+        trees[n] = trees.get(n, 0) + count
+        if n <= 1 << 20:
+            continue  # shapes of the fib-100k proof: phase 2
+        cols = _rand((k, n), (1 << 31) - 1, gen)
+        e = max_abs_err(blake2s.hash_leaves(cols, n_words),
+                        torch.stack(blake2s.hash_words(list(cols), n_words)))
+        if e:
+            raise AssertionError(f"blake2s kernel disagrees with plain at {key}: {e}")
+        ms = time_ms(lambda: blake2s.hash_leaves(cols, n_words))
+        dev_ms = time_ms(lambda: blake2s.hash_leaves(cols, n_words), queued=True)
+        plain_ms = time_ms(lambda: blake2s.hash_words(list(cols), n_words), reps=1)
+        b_ms, b_by = blake2s_bound(n_words, n)
+        log(f"    blake2s K={k} (words {n_words}) n=2^{n.bit_length() - 1}: "
+            f"max_abs_err={e}, kernel {ms:.4f} ms ({dev_ms:.4f} ms queued), plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), kernel/bound "
+            f"{ms / b_ms:.2f}, launches per warm fib(1M) proof {count}")
+        del cols
+    want = sum(c * blake2s.pyramid_launches(n) for n, c in trees.items())
+    got = sum(c for key, c in shapes.items() if key[0] == "blake2s_pyramid")
+    log(f"  device trees of the warm fib(1M) proof by leaves: "
+        + ", ".join(f"2^{n.bit_length() - 1}: {c}" for n, c in sorted(trees.items()))
+        + f"; {sum(trees.values())} leaf launches, {got} pyramid launches")
+    if got != want:
+        raise AssertionError(f"{got} pyramid launches in the fib(1M) proof, expected {want}")
+    for m, row in table_p.items():
+        row["launches_fib1m"] = trees.get(m, 0)
+        log(f"    blake2s pyramid m=2^{m.bit_length() - 1}: {row['ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.5f} ms, trees of this size per warm fib(1M) "
+            f"proof {row['launches_fib1m']}")
+    return table
+
+
+def phase_fib1m(gen, program, table_p, known=None):
+    """Phase 10; -> the launches of the warm fib(1M) proof."""
+    with tempfile.TemporaryDirectory() as tmp:
+        entry, shapes = phase_fib1m_prove(tmp)
+    phase("  (b) the kernels at the sizes of fib(1M)")
+    phase_fib1m_kernels(gen, program, shapes, table_p, known)
+    return entry["runs"]["warm"]["launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -1149,6 +1329,14 @@ def main():
     nccl_only = "--nccl" in sys.argv[1:]
     if nccl_only and torch.cuda.device_count() < 2:
         raise RuntimeError("--nccl needs two cards or more, one a rank")
+    if "--fib1m" in sys.argv[1:]:
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(2024)
+        phase("phase 10: fibonacci(1,000,000), 8,000,010 cycles in one proof")
+        phase_fib1m(gen, compile_cairo(FIB_SRC).program, {})
+        log(f"card: {card_line()}")
+        log("stopping after phase 10")
+        return
     if "--witnesses" in sys.argv[1:]:
         phase("phase 5b: every AIR component, the witnesses of tests/golden/witnesses.json")
         gen = torch.Generator(device=DEV)
@@ -1180,8 +1368,8 @@ def main():
     gen.manual_seed(2024)
     phase("phase 2: blake2s leaf kernel vs plain")
     table_a = phase_blake2s(gen)
-    phase("phase 2: blake2s pyramid kernel vs plain, every tree of 2^1 .. 2^22 leaves")
-    table_p = phase_pyramid(gen)
+    phase("phase 2: blake2s pyramid kernel vs plain, every tree of 2^1 .. 2^24 leaves")
+    table_p = phase_pyramid(gen, 24)
     phase_trees(gen)
     top_s = host_top_seconds()
     log(f"  host: hashing one tree top (1024 nodes to the root) with NumPy takes "
@@ -1273,8 +1461,12 @@ def main():
 
     phase("phase 6: stwo framing")
     phase_test_scale(program, "stwo", "fib40_stwo_proof_sha256.json")
-    paths["stwo"], _, _ = prove_full(pi, config.STWO_FRAMING_96_BITS, "fib-100k stwo",
-                                     runs=("first",))
+    # 80,010 cycles: a tenth of fib-100k's depth (its host trees and
+    # host verification are most of the phase)
+    pi_stwo = native_prover_input(program, "main", [STWO_ITERS])
+    paths["stwo"], _, _ = prove_full(pi_stwo, config.STWO_FRAMING_96_BITS,
+                                     f"fib({STWO_ITERS}) stwo", runs=("first",))
+    del pi_stwo
     if paths["stwo"]["wtape_run_plan"] <= 0:
         raise AssertionError("kernel wtape_run_plan never launched on the stwo path")
 
@@ -1289,6 +1481,9 @@ def main():
     phase("phase 9: the row-sharded prover")
     phase_sharded_test_scale()
     paths["sharded"] = phase_sharded_full(single_digest, single_peak)
+
+    phase("phase 10: fibonacci(1,000,000), 8,000,010 cycles in one proof")
+    paths["fib1m"] = phase_fib1m(gen, program, table_p, table_b)
 
     def entry(name, source, replaces, row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
