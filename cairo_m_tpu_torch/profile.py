@@ -229,6 +229,18 @@ def trace_prove(pi, cfg, device) -> dict:
     }
 
 
+def log_trace(label: str, tr: dict):
+    """Print a `trace_prove` record: its totals, then the largest device
+    operations."""
+    log(f"{label} traced warm prove: {tr['wall_s']:.3f} s wall, "
+        f"{tr['device_kernels']} device kernels ({tr['device_ops']} device "
+        f"operations), device busy {tr['device_busy_s']:.4f} s "
+        f"({100 * tr['device_busy_share']:.1f}%), {tr['launch_calls']} "
+        f"launch calls, {tr['launch_host_s']:.4f} s of host time")
+    for op in tr["top_device_ops"]:
+        log(f"    {op['ms']:10.3f} ms {op['count']:7d}x {op['name']}")
+
+
 def _config(test_scale: bool):
     if test_scale:
         config_mod.set_test_scale(**TEST_SCALE)
@@ -288,14 +300,7 @@ def run_prove(iters_list, runs, device, cfg, verify=False, save_dir=None,
                 f"{entry['verify_s']:.3f} s")
         if trace:
             entry["trace"] = trace_prove(pi, cfg, device)
-            tr = entry["trace"]
-            log(f"fib({iters}) traced warm prove: {tr['wall_s']:.3f} s wall, "
-                f"{tr['device_kernels']} device kernels ({tr['device_ops']} device "
-                f"operations), device busy {tr['device_busy_s']:.4f} s "
-                f"({100 * tr['device_busy_share']:.1f}%), {tr['launch_calls']} "
-                f"launch calls, {tr['launch_host_s']:.4f} s of host time")
-            for op in tr["top_device_ops"]:
-                log(f"    {op['ms']:10.3f} ms {op['count']:7d}x {op['name']}")
+            log_trace(f"fib({iters})", entry["trace"])
         entry["host_max_rss_gib"] = host_max_rss_gib()
         summary["fib"].append(entry)
         del proof, pi
@@ -344,6 +349,13 @@ def run_components(iters: int, device, cfg) -> dict:
     pi, adapter_s = fib_input(iters)
     log(f"device {device}; fib({iters}): {pi.total_steps} cycles, native VM + "
         f"adapter {adapter_s:.3f} s")
+    return {"iters": iters, **component_report(pi, cfg, device)}
+
+
+def component_report(pi, cfg, device) -> dict:
+    """`profile_components` on the prover input ``pi``, printed stage by
+    stage, components by synced seconds; -> the record of the ``components``
+    command."""
     proof, rec, timer = profile_components(pi, cfg, device)
     log(f"observed prove (synced around every component): {rec['seconds']:.3f} s; "
         "phases " + json.dumps({k: round(v, 4) for k, v in rec["phases"].items()}))
@@ -359,7 +371,7 @@ def run_components(iters: int, device, cfg) -> dict:
         for r in rows:
             log(f"    {r['component']:34s} log={r['log_size']:2d} "
                 f"{1e3 * r['seconds']:9.3f} ms (dispatch {1e3 * r['dispatch_s']:9.3f} ms)")
-    return {"device": str(device), "card": card_line(device), "iters": iters,
+    return {"device": str(device), "card": card_line(device),
             "cycles": pi.total_steps, "prove": rec, "totals": totals,
             "components": timer.rows, "sha256": proof_digest(proof)}
 

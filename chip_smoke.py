@@ -15,6 +15,7 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py --nccl     # phases 1, 5 and 9(c) only, on a
                                      # machine with two cards or more
     python3 chip_smoke.py --fib1m    # phases 1 and 10: the largest proof
+    python3 chip_smoke.py --sha256   # phases 1 and 11: the SHA-256 example
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -52,13 +53,15 @@ Phases (each raises on failure, so the script exits non-zero):
    proved on the card under every framing it has a reference digest for,
    the digest equal to the reference's and the proof verified; (b) the
    wide-tape kernels on every plan of every live component of all the
-   witnesses: the kernel the rule picks (recorded per plan) and the
+   witnesses but the SHA-256 example's (phase 11(c) checks those at their
+   sizes): the kernel the rule picks (recorded per plan) and the
    global-scratch kernel, each bit for bit against the plain version and
    timed beside its bound; the opcode plans of PERF.md's table also at
    2^20 lanes; (c) the production witnesses at ``REGULAR_96_BITS``:
    ``allops`` proved cold (the prover's plan and preprocessed caches set
    aside) and warm, its seconds, launches, peak device memory and program
-   id printed, the other once, each digest equal to
+   id printed, the others once (the SHA-256 example's in phase 11), each
+   digest equal to
    ``tests/golden/<name>_production_sha256.json`` and each proof verified,
    but for ``allops``'s, which the verifier must reject at the OODS check as
    the reference's verifier rejects the same bytes (store_le_fp_imm's
@@ -76,7 +79,8 @@ Phases (each raises on failure, so the script exits non-zero):
    fibonacci(2,000) with ``--max-steps 10000`` (two segments,
    ``REGULAR_96_BITS``, production tables) with ``--verify`` and ``verify``
    the file, and beside that chain prove a small run under ``--framing
-   stwo`` and ``verify`` it; every exit code 0 and every segment verified;
+   stwo`` and ``verify`` it, and run phase 11(d); every exit code 0 and
+   every segment verified;
 8. chained segments through ``prove_segments_multiprocess`` with two
    workers on ``cuda:0``: (a) fib-40 cut at 100 steps at test scale, every
    segment's proof digest equal to ``tests/golden/fib40_segments_sha256.json``;
@@ -108,8 +112,32 @@ Phases (each raises on failure, so the script exits non-zero):
    and the warm proof's ``CM_DEBUG_PHASES`` lines are printed; (b) the
    kernels at its sizes: the wide-tape kernels on every plan of the
    fib(1M) witness at its own size (as phase 3), the leaf kernel on every
-   leaf shape of the warm proof beyond 2^20 lanes, each bit for bit against
-   plain and timed; every launch shape of the warm proof checked.
+   leaf shape of the warm proof beyond 2^20 lanes and the pyramid kernel on
+   every tree size, each bit for bit against plain, the leaves timed; every
+   launch shape of the warm proof checked;
+11. the SHA-256 example ``examples/sha256/sha256.cm``, the JAX package's
+   README proof (``main``: SHA-256 of "abc") and the Rust reference's second
+   prover benchmark (``bench1k``: a 1 KiB message, 292,715 cycles, 30 live
+   components, 12 of them u32 opcodes): (a) both entry points run by the
+   native VM + adapter, their return values equal to ``hashlib``'s digest
+   and their live components those of ``tests/golden/witnesses.json``; (b)
+   each proved at ``REGULAR_96_BITS`` with ``profile.timed_prove``, cold
+   (``profile.cold_prover_caches``) and warm (``bench1k`` twice warm), every
+   digest equal to ``tests/golden/sha256_<entry>_production_sha256.json``
+   and ``bench1k``'s proof verified (``main``'s bytes are (d)'s); seconds,
+   cycles/s, phases, launches, peak device
+   memory and log sizes printed; then ``bench1k`` once under
+   ``profile.trace_prove`` and once per component
+   (``profile.component_report``); (c) the wide-tape kernels on every plan
+   of ``bench1k``'s live components at their sizes (those phase 3 did not
+   check at the same size), the rule's kernel and the global-scratch
+   kernel, each bit for bit against plain, the u32 and bitwise plans timed
+   beside plain; every leaf shape and every tree size of the warm proof
+   against plain; (d) the README's chain through the command line in
+   subprocesses: ``compile``, ``run --entrypoint main`` (the digest words),
+   ``prove --entrypoint main --output --verify --device cuda`` (the file's
+   segment equal to the ``main`` digest) and ``verify --device cuda``; the
+   full run runs (d) in phase 7, beside the other command-line chains.
 
 Launch counts are read per path: zeroed just before each path is driven
 and read just after (the segment, command-line and sharded paths count
@@ -120,6 +148,7 @@ JAX and nothing of the JAX package ``cairo_m_tpu``, and says so before its
 last lines.
 """
 
+import contextlib
 import hashlib
 import json
 import os
@@ -544,10 +573,12 @@ def check_plans(jobs, gen, timed=(), require_smem=False):
     for bit against the plain version on random bank rows, and both timed;
     the plain version is timed too for the plans named in ``timed``.
     ``require_smem``: the rule must pick the shared-memory kernel.
-    -> rows keyed by launch shape."""
+    -> rows keyed by launch shape (of plans that share a shape, the last
+    one's)."""
     err = 0
     table = {}
     variants = {}
+    plain_timed = set()
     for name, plan, n, consts in jobs:
         rows = _rand((len(plan.used_bank), n), (1 << 31) - 1, gen)
         variant = _variant(plan, n)
@@ -575,6 +606,7 @@ def check_plans(jobs, gen, timed=(), require_smem=False):
                 f"{b_ms:.5f} ms ({b_by}), kernel/bound {ms / b_ms:.2f}")
         if name in timed:  # the plain version is slow: the table's plans only
             row["plain_ms"] = time_ms(lambda: _plain(rows, consts, plan), reps=2)
+            plain_timed.add(name)
             line += f", plain {row['plain_ms']:.4f} ms"
         log(line)
         if "--kernels" in sys.argv[1:]:
@@ -584,10 +616,31 @@ def check_plans(jobs, gen, timed=(), require_smem=False):
         raise AssertionError(f"wtape kernel disagrees with plain: {err}")
     log(f"  {len(jobs)} plans held to plain, each by the kernel the rule picks "
         f"and by the global-scratch kernel; the rule picked {variants}")
-    missing = set(timed) - {r["name"] for r in table.values() if "plain_ms" in r}
+    missing = set(timed) - plain_timed
     if missing:
         raise AssertionError(f"plans of the kernel table not in the witness: {missing}")
     return table
+
+
+def count_plan_launches(table, shapes, label, known=()):
+    """Kernel B's rows (``check_plans``) against the launch shapes of a warm
+    ``label`` proof: every wide-tape launch shape must be a row or in
+    ``known``; each row gets its launches (either variant), and the rows
+    timed beside plain are printed."""
+    unknown = [k for k in shapes if k[0].startswith("wtape")
+               and k[1:] not in table and k[1:] not in known]
+    if unknown:
+        raise AssertionError(f"the warm {label} proof ran plans not checked: {unknown}")
+    for shape, row in table.items():
+        row["launches"] = (shapes.get(("wtape_run_plan", *shape), 0)
+                           + shapes.get(("wtape_run_plan_global", *shape), 0))
+        if "plain_ms" in row:
+            log(f"    wtape {row['name']} n=2^{shape[-1].bit_length() - 1}: "
+                f"{row['ms']:.4f} ms ({row['variant']}; global-scratch kernel "
+                f"{row['global_ms']:.4f} ms), bound {row['bound_ms']:.5f} ms "
+                f"({row['bound_by']}), kernel/bound {row['ms'] / row['bound_ms']:.1f}, "
+                f"plain {row['plain_ms']:.4f} ms, launches per warm {label} proof "
+                f"{row['launches']}")
 
 
 def phase_wtape(pi, gen):
@@ -671,12 +724,16 @@ def witness_input(w):
     current protocol scale."""
     if "program" in w:
         program = Program.from_json(json.dumps(w["program"]))
+    elif "source_file" in w:
+        with open(os.path.join(REPO, w["source_file"])) as f:
+            program = compile_cairo(f.read(), w["source_file"]).program
     else:
         program = compile_cairo("\n".join(w["source"]) + "\n").program
+    entrypoint = w.get("entrypoint", "main")
     slots = []  # call-slot encoding: a u32 is two 16-bit limbs, low first
-    for p, a in zip(program.get_entrypoint("main").params, w["args"], strict=True):
+    for p, a in zip(program.get_entrypoint(entrypoint).params, w["args"], strict=True):
         slots += [a & 0xFFFF, a >> 16] if p.ty.kind == "u32" else [a]
-    return native_prover_input(program, "main", slots)
+    return native_prover_input(program, entrypoint, slots)
 
 
 def witness_golden(name, w, framing="native"):
@@ -770,7 +827,10 @@ def phase_witnesses(gen, witnesses):
     inputs = {}
     prod_jobs = []
     for name, w in witnesses.items():
-        if w["scale"] == "production":
+        if "source_file" in w:
+            log(f"  {name}: the SHA-256 example, proved and its plans checked in "
+                "phase 11 (--sha256)")
+        elif w["scale"] == "production":
             pi = witness_input(w)
             if _live(pi) != w["live"]:
                 raise AssertionError(f"{name}: live components {_live(pi)} != {w['live']}")
@@ -810,18 +870,7 @@ def phase_witnesses(gen, witnesses):
     for name in PATH_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the allops path")
-    unknown = [k for k in shapes if k[0].startswith("wtape") and k[1:] not in table]
-    if unknown:
-        raise AssertionError(f"the warm allops prove ran plans not checked: {unknown}")
-    for shape, row in table.items():
-        row["launches"] = (shapes.get(("wtape_run_plan", *shape), 0)
-                           + shapes.get(("wtape_run_plan_global", *shape), 0))
-        if "plain_ms" in row:
-            log(f"    wtape {row['name']} n=2^{shape[-1].bit_length() - 1}: "
-                f"{row['ms']:.4f} ms ({row['variant']}; global-scratch kernel "
-                f"{row['global_ms']:.4f} ms), bound {row['bound_ms']:.5f} ms "
-                f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, launches per "
-                f"warm allops prove {row['launches']}")
+    count_plan_launches(table, shapes, "allops")
     return launches, table
 
 
@@ -922,10 +971,11 @@ def _cli_chain(tmp, prog, framing, arg, max_steps, n_segments, check, lines):
     return launches
 
 
-def phase_cli(tmp):
+def phase_cli(tmp, witnesses):
     """prove / verify through the command line, in subprocesses: the native
-    and the stwo prove -> verify chains run side by side (each is mostly
-    one process's cold start, or host-side stwo trees), each chain's lines
+    and the stwo prove -> verify chains and phase 11(d)'s chain of the
+    SHA-256 example run side by side (each is mostly one process's cold
+    start, host-side stwo trees or host verification), each chain's lines
     printed when it ends."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -937,23 +987,29 @@ def phase_cli(tmp):
     # verification costs tens of seconds on the card's machine
     chains = {"native": ("2000", "10000", 2, ["--verify"]),
               "stwo": ("100", "50000", 1, [])}
-    lines = {framing: [] for framing in chains}
-    with ThreadPoolExecutor(len(chains)) as pool:
+    lines = {name: [] for name in (*chains, "sha256")}
+    sha_tmp = os.path.join(tmp, "sha256")
+    os.makedirs(sha_tmp)
+    with ThreadPoolExecutor(len(lines)) as pool:
         futures = {framing: pool.submit(_cli_chain, tmp, prog, framing, *args,
                                         lines[framing])
                    for framing, args in chains.items()}
+        futures["sha256"] = pool.submit(phase_sha256_cli, sha_tmp, witnesses,
+                                        lines["sha256"])
         launches = {}
-        for framing, fut in futures.items():
+        for name, fut in futures.items():
             try:
-                launches[framing] = fut.result()
+                launches[name] = fut.result()
             finally:
-                for line in lines[framing]:
+                if name == "sha256":
+                    log("  phase 11(d), the README's commands of the SHA-256 example:")
+                for line in lines[name]:
                     log(line)
     log(f"  cli prove launches: {launches}")
     if (min(launches["native"][k] for k in PATH_KERNELS) <= 0
             or launches["stwo"]["wtape_run_plan"] <= 0):
         raise AssertionError("a kernel never launched in the cli's proofs")
-    return {k: launches["native"][k] + launches["stwo"][k] for k in launches["native"]}
+    return {k: sum(c[k] for c in launches.values()) for k in launches["native"]}
 
 
 def _digest(obj):
@@ -1239,44 +1295,19 @@ def phase_fib1m_prove(tmp):
     return entry, _parse_shapes(warm["launch_shapes"])
 
 
-def phase_fib1m_kernels(gen, program, shapes, table_p, known=None):
-    """(b) the kernels at the sizes fib(1M) gives them: kernel B on every
-    plan of the fib(1M) witness (both variants, vs plain) but those of a
-    launch shape in ``known`` (phase 3's rows: the same plan at the same
-    size), the leaf kernel on every leaf shape of the warm proof beyond
-    2^20 lanes (vs plain), the pyramid's launches per tree (phase 2 checked
-    every size to 2^24); every launch shape of the warm proof must have
-    been checked.  -> kernel B's rows keyed by launch shape."""
-    known = known or {}
-    t = time.time()
-    pi = native_prover_input(program, "main", [FIB1M_ITERS])
-    log(f"  fib({FIB1M_ITERS}) native VM + adapter in this process: "
-        f"{time.time() - t:.3f} s")
-    jobs = [j for j in witness_plans(pi)
-            if wtape._launch_shape(j[1], j[2]) not in known]
-    del pi
-    log(f"  {len(jobs)} plans of the fib(1M) witness at sizes phase 3 did not check")
-    table = check_plans(jobs, gen, WTAPE_FIB1M_TABLE, require_smem=True)
-    unknown = [k for k in shapes if k[0].startswith("wtape")
-               and k[1:] not in table and k[1:] not in known]
-    if unknown:
-        raise AssertionError(f"the warm fib(1M) proof ran plans not checked: {unknown}")
-    for shape, row in table.items():
-        row["launches"] = shapes.get(("wtape_run_plan", *shape), 0)
-        if "plain_ms" in row:
-            log(f"    wtape {row['name']} n=2^{shape[-1].bit_length() - 1}: "
-                f"{row['ms']:.4f} ms (global-scratch kernel {row['global_ms']:.4f} ms), "
-                f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}), plain "
-                f"{row['plain_ms']:.4f} ms, launches per warm fib(1M) proof "
-                f"{row['launches']}")
+def check_tree_shapes(gen, shapes, label, min_lanes=0):
+    """The leaf kernel on every leaf launch shape in ``shapes`` of more than
+    ``min_lanes`` lanes (timed beside plain and its bound) and the pyramid
+    kernel on every tree size, each against plain; the pyramid's launches
+    per tree.  -> leaves -> trees of that size in ``shapes``."""
     trees = {}
-    for key, count in shapes.items():
+    for key, count in sorted(shapes.items()):
         if key[0] != "blake2s_leaves":
             continue
         k, n_words, n = key[1:]
         trees[n] = trees.get(n, 0) + count
-        if n <= 1 << 20:
-            continue  # shapes of the fib-100k proof: phase 2
+        if n <= min_lanes:
+            continue
         cols = _rand((k, n), (1 << 31) - 1, gen)
         e = max_abs_err(blake2s.hash_leaves(cols, n_words),
                         torch.stack(blake2s.hash_words(list(cols), n_words)))
@@ -1289,15 +1320,50 @@ def phase_fib1m_kernels(gen, program, shapes, table_p, known=None):
         log(f"    blake2s K={k} (words {n_words}) n=2^{n.bit_length() - 1}: "
             f"max_abs_err={e}, kernel {ms:.4f} ms ({dev_ms:.4f} ms queued), plain "
             f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), kernel/bound "
-            f"{ms / b_ms:.2f}, launches per warm fib(1M) proof {count}")
+            f"{ms / b_ms:.2f}, launches per warm {label} proof {count}")
         del cols
+    for m in sorted(trees):
+        packed = torch.zeros((8, 2 * m - 1), dtype=torch.int64, device=DEV)
+        packed[:, :m] = _rand((8, m), 1 << 32, gen)
+        e = max_abs_err(blake2s.merkle_pyramid(packed.clone()),
+                        blake2s.merkle_pyramid_plain(packed.clone()))
+        if e:
+            raise AssertionError(f"pyramid kernel disagrees with plain at m={m}: {e}")
+        log(f"    blake2s pyramid m=2^{m.bit_length() - 1}: max_abs_err={e}, "
+            f"{blake2s.pyramid_launches(m)} launches a tree, {trees[m]} trees per "
+            f"warm {label} proof")
+        del packed
     want = sum(c * blake2s.pyramid_launches(n) for n, c in trees.items())
     got = sum(c for key, c in shapes.items() if key[0] == "blake2s_pyramid")
-    log(f"  device trees of the warm fib(1M) proof by leaves: "
+    log(f"  device trees of the warm {label} proof by leaves: "
         + ", ".join(f"2^{n.bit_length() - 1}: {c}" for n, c in sorted(trees.items()))
         + f"; {sum(trees.values())} leaf launches, {got} pyramid launches")
     if got != want:
-        raise AssertionError(f"{got} pyramid launches in the fib(1M) proof, expected {want}")
+        raise AssertionError(f"{got} pyramid launches in the {label} proof, expected {want}")
+    return trees
+
+
+def phase_fib1m_kernels(gen, program, shapes, table_p, known=None):
+    """(b) the kernels at the sizes fib(1M) gives them: kernel B on every
+    plan of the fib(1M) witness (both variants, vs plain) but those of a
+    launch shape in ``known`` (phase 3's rows: the same plan at the same
+    size), the leaf kernel on every leaf shape of the warm proof beyond
+    2^20 lanes and the pyramid kernel on every tree size (`check_tree_shapes`);
+    every launch shape of the warm proof must have been checked.  -> kernel
+    B's rows keyed by launch shape."""
+    known = known or {}
+    t = time.time()
+    pi = native_prover_input(program, "main", [FIB1M_ITERS])
+    log(f"  fib({FIB1M_ITERS}) native VM + adapter in this process: "
+        f"{time.time() - t:.3f} s")
+    jobs = [j for j in witness_plans(pi)
+            if wtape._launch_shape(j[1], j[2]) not in known]
+    del pi
+    log(f"  {len(jobs)} plans of the fib(1M) witness at sizes phase 3 did not check")
+    table = check_plans(jobs, gen, WTAPE_FIB1M_TABLE, require_smem=True)
+    count_plan_launches(table, shapes, f"fib({FIB1M_ITERS})", known)
+    # leaf shapes of up to 2^20 lanes are the fib-100k proof's: phase 2
+    trees = check_tree_shapes(gen, shapes, f"fib({FIB1M_ITERS})", min_lanes=1 << 20)
     for m, row in table_p.items():
         row["launches_fib1m"] = trees.get(m, 0)
         log(f"    blake2s pyramid m=2^{m.bit_length() - 1}: {row['ms']:.4f} ms, "
@@ -1313,6 +1379,184 @@ def phase_fib1m(gen, program, table_p, known=None):
     phase("  (b) the kernels at the sizes of fib(1M)")
     phase_fib1m_kernels(gen, program, shapes, table_p, known)
     return entry["runs"]["warm"]["launches"]
+
+
+SHA256_FILE = os.path.join("examples", "sha256", "sha256.cm")
+SHA256_MESSAGES = {
+    "main": b"abc",
+    # word j of block i is i*16 + j, big-endian: 16 blocks, 1 KiB
+    "bench1k": b"".join(i.to_bytes(4, "big") for i in range(256)),
+}
+# the proofs of phase 11(b), in order: bench1k's cold proof is the first
+# proof of the process under --sha256
+SHA256_RUNS = {"bench1k": ("cold", "warm", "warm"), "main": ("cold", "warm")}
+
+
+def _sha256_words(data: bytes) -> list:
+    d = hashlib.sha256(data).digest()
+    return [int.from_bytes(d[i:i + 4], "big") for i in range(0, 32, 4)]
+
+
+def _return_words(pi) -> list:
+    """The u32 return values of a native prover input, read from its
+    output cells (two 16-bit limbs each, low first)."""
+    slots = [pi.final_memory[a][0][0] for a in pi.public_address_ranges.output]
+    return [lo | hi << 16 for lo, hi in zip(slots[::2], slots[1::2])]
+
+
+def phase_sha256_runs(program, witnesses):
+    """(a) Both entry points by the native VM + adapter: the return values
+    equal to hashlib's digest, the live components those of the witnesses.
+    -> entry point -> prover input."""
+    inputs = {}
+    for ep, msg in SHA256_MESSAGES.items():
+        t = time.time()
+        pi = native_prover_input(program, ep, [])
+        secs = time.time() - t
+        got, want = _return_words(pi), _sha256_words(msg)
+        log(f"  sha256 {ep}: {pi.total_steps} cycles, native VM + adapter "
+            f"{secs:.3f} s; returns {[f'{w:08x}' for w in got]} "
+            f"({'equal to' if got == want else 'DIFFERENT from'} hashlib's)")
+        if got != want:
+            raise AssertionError(f"sha256 {ep}: the VM's digest differs from hashlib's")
+        if _live(pi) != witnesses[f"sha256_{ep}"]["live"]:
+            raise AssertionError(f"sha256 {ep}: live components {_live(pi)}")
+        inputs[ep] = pi
+    return inputs
+
+
+def phase_sha256_proofs(inputs, witnesses):
+    """(b) Each entry point proved cold and warm at REGULAR_96_BITS
+    (`profile.timed_prove`), every digest equal to the golden; bench1k's
+    last proof verified (its others are the same bytes; main's are those
+    that (d) verifies); then bench1k traced and per component.  -> (launches summed
+    over the proofs of (b)'s runs, the warm bench1k proof's launch
+    shapes)."""
+    cfg = config.REGULAR_96_BITS
+    launches = dict.fromkeys(kernels.launches, 0)
+    shapes = None
+    for ep, runs in SHA256_RUNS.items():
+        pi = inputs[ep]
+        name = f"sha256_{ep}"
+        want = witness_golden(name, witnesses[name])
+        for run in runs:
+            with contextlib.ExitStack() as stack:
+                if run == "cold":
+                    stack.enter_context(profile.cold_prover_caches())
+                proof, rec = profile.timed_prove(pi, cfg, DEV)
+            digest = _digest(proof.to_json_obj())
+            log(f"  sha256 {ep} {run} prove: {rec['seconds']:.3f} s, "
+                f"{rec['cycles_per_s']:.1f} cycles/s; phases "
+                + json.dumps({k: round(v, 4) for k, v in rec["phases"].items()})
+                + f"; peak device memory {rec['peak_device_bytes'] / 2**30:.2f} GiB "
+                f"({rec['peak_device_bytes']} bytes); launches {rec['launches']}; "
+                f"sha256 {digest} "
+                f"({'equal to' if digest == want else 'DIFFERENT from'} the reference's)")
+            if digest != want:
+                raise AssertionError(f"sha256 {ep}: the proof differs from the golden")
+            for k, n in rec["launches"].items():
+                launches[k] += n
+            if run == "warm":
+                for k in PATH_KERNELS:
+                    if rec["launches"][k] <= 0:
+                        raise AssertionError(f"kernel {k} never launched in the warm "
+                                             f"sha256 {ep} proof")
+                if rec["launches"]["wtape_run_plan_global"]:
+                    raise AssertionError("a sha256 plan took the global-scratch kernel")
+                if ep == "bench1k":
+                    shapes = _parse_shapes(rec["launch_shapes"])
+        log(f"  sha256 {ep} log sizes {json.dumps(profile.log_sizes(proof))}")
+        if ep == "main":
+            # the same bytes (equal digests) as (d)'s, which the command
+            # line verifies twice
+            continue
+        t = time.time()
+        if not verify_cairo_m(proof, cfg):
+            raise AssertionError(f"sha256 {ep}: the proof did not verify")
+        log(f"  sha256 {ep}: verified in {time.time() - t:.3f} s")
+    pi = inputs["bench1k"]
+    profile.log_trace("sha256 bench1k", profile.trace_prove(pi, cfg, DEV))
+    log("  sha256 bench1k per component (a warm-up proof, then one synced around "
+        "every component):")
+    profile.component_report(pi, cfg, DEV)
+    return launches, shapes
+
+
+def phase_sha256_kernels(gen, pi, shapes, known=None):
+    """(c) Kernel B on every plan of bench1k's live components at their
+    sizes, but those of a launch shape in ``known`` (phase 3's rows); the
+    u32 and bitwise plans timed beside plain; every wide-tape launch shape
+    of the warm proof checked; the trees' kernels on every leaf shape and
+    tree size of the warm proof.  -> kernel B's rows keyed by launch
+    shape."""
+    known = known or {}
+    jobs = [j for j in witness_plans(pi) if wtape._launch_shape(j[1], j[2]) not in known]
+    timed = [j[0] for j in jobs if j[0].split()[-1].startswith(("u32_", "bitwise"))]
+    log(f"  {len(jobs)} plans of the bench1k witness at sizes phase 3 did not check")
+    table = check_plans(jobs, gen, timed, require_smem=True)
+    count_plan_launches(table, shapes, "bench1k", known)
+    check_tree_shapes(gen, shapes, "bench1k")
+    return table
+
+
+def phase_sha256_cli(tmp, witnesses, lines=None):
+    """(d) The README's chain through the command line, in subprocesses:
+    compile, run, prove --verify on the card, verify; its lines go to
+    ``lines`` (a list) where given, else to the log.  -> the prove's
+    launches."""
+    prog, out = os.path.join(tmp, "sha256.json"), os.path.join(tmp, "proof.json")
+    _cli("compile", SHA256_FILE, "-o", prog, out=lines)
+    res = _cli("run", prog, "--entrypoint", "main", out=lines)
+    if res.stdout.strip() != str(_sha256_words(SHA256_MESSAGES["main"])):
+        raise AssertionError(f"cli run: {res.stdout!r} is not SHA-256(abc)")
+    res = _cli("prove", prog, "--entrypoint", "main", "--output", out, "--verify",
+               "--device", "cuda", out=lines)
+    launches = _cli_launches(res)
+    if "segment 0: verified=True" not in res.stdout.splitlines():
+        raise AssertionError("cli prove: the proof did not verify")
+    with open(out) as f:
+        (segment,) = json.load(f)["segments"]
+    digest = _digest(segment)
+    want = witness_golden("sha256_main", witnesses["sha256_main"])
+    line = (f"  cli proof file: segment sha256 {digest} "
+            f"({'equal to' if digest == want else 'DIFFERENT from'} the reference's); "
+            f"prove launches {launches}")
+    if lines is None:
+        log(line)
+    else:
+        lines.append(line)
+    if digest != want:
+        raise AssertionError("the cli's proof of sha256 main differs from the golden")
+    res = _cli("verify", out, "--device", "cuda", out=lines)
+    if res.stdout.strip().splitlines() != ["segment 0: OK", "proof verified"]:
+        raise AssertionError(f"cli verify: {res.stdout!r}")
+    for k in PATH_KERNELS:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched in the cli's proof")
+    return launches
+
+
+def phase_sha256(gen, known=None, cli=True):
+    """Phase 11; ``cli``: run (d) here (the full run runs it in phase 7,
+    beside the other command-line chains).  -> the launches of (b)'s
+    proofs."""
+    witnesses = load_witnesses()
+    with open(os.path.join(REPO, SHA256_FILE)) as f:
+        program = compile_cairo(f.read(), SHA256_FILE).program
+    phase("  (a) both entry points against hashlib")
+    inputs = phase_sha256_runs(program, witnesses)
+    phase("  (b) proofs on the card")
+    launches, shapes = phase_sha256_proofs(inputs, witnesses)
+    phase("  (c) the kernels at bench1k's shapes")
+    phase_sha256_kernels(gen, inputs["bench1k"], shapes, known)
+    del inputs
+    if not cli:
+        log("  (d) the README's commands ran in phase 7")
+        return launches
+    phase("  (d) the README's commands")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_sha256_cli(tmp, witnesses)
+    return launches
 
 
 def main():
@@ -1336,6 +1580,14 @@ def main():
         phase_fib1m(gen, compile_cairo(FIB_SRC).program, {})
         log(f"card: {card_line()}")
         log("stopping after phase 10")
+        return
+    if "--sha256" in sys.argv[1:]:
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(2024)
+        phase("phase 11: the SHA-256 example")
+        phase_sha256(gen)
+        log(f"card: {card_line()}")
+        log("stopping after phase 11")
         return
     if "--witnesses" in sys.argv[1:]:
         phase("phase 5b: every AIR component, the witnesses of tests/golden/witnesses.json")
@@ -1472,7 +1724,7 @@ def main():
 
     phase("phase 7: command line")
     with tempfile.TemporaryDirectory() as tmp:
-        paths["cli"] = phase_cli(tmp)
+        paths["cli"] = phase_cli(tmp, load_witnesses())
 
     phase("phase 8: chained segments, two workers on the card")
     phase_segments_test_scale()
@@ -1484,6 +1736,9 @@ def main():
 
     phase("phase 10: fibonacci(1,000,000), 8,000,010 cycles in one proof")
     paths["fib1m"] = phase_fib1m(gen, program, table_p, table_b)
+
+    phase("phase 11: the SHA-256 example")
+    paths["sha256"] = phase_sha256(gen, table_b, cli=False)
 
     def entry(name, source, replaces, row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -301,6 +301,8 @@ def witness_sides():
     that witness) for every component that fibonacci(40) leaves idle."""
     out = {}
     for wname in WITNESSES:
+        if len(out) == len(OTHERS):
+            break  # the later witnesses (the SHA-256 example) add no component
         with witness_scale(wname):
             trel = Relations()
             tcomps = ComponentSet(trel)

@@ -305,14 +305,26 @@ def witness_scale(name):
     return both_at_scale(SCALES[WITNESSES[name]["scale"]])
 
 
+REPO_DIR = os.path.dirname(os.path.dirname(GOLDEN_DIR))
+
+
+def witness_entrypoint(name) -> str:
+    """The entry point the witness runs: ``entrypoint``, else ``main``."""
+    return WITNESSES[name].get("entrypoint", "main")
+
+
 def witness_program(package: str, name: str):
     """The witness's Program, compiled by (or loaded with) ``package``'s own
-    compiler and ISA classes."""
+    compiler and ISA classes: an assembled ``program``, a ``source_file``
+    of the repository, or the inline ``source``."""
     w = WITNESSES[name]
     if "program" in w:
         Program = importlib.import_module(f"{package}.isa.program").Program
         return Program.from_json(json.dumps(w["program"]))
     compile_cairo = importlib.import_module(f"{package}.compiler").compile_cairo
+    if "source_file" in w:
+        with open(os.path.join(REPO_DIR, w["source_file"])) as f:
+            return compile_cairo(f.read(), w["source_file"]).program
     return compile_cairo("\n".join(w["source"]) + "\n").program
 
 
@@ -332,7 +344,7 @@ def reference_witness_input(name):
     from cairo_m_tpu.prover.adapter.adapter import import_from_runner_output
     from cairo_m_tpu.vm.runner import run_cairo_program
 
-    res = run_cairo_program(witness_program("cairo_m_tpu", name), "main",
+    res = run_cairo_program(witness_program("cairo_m_tpu", name), witness_entrypoint(name),
                             [InputValue.number(a) for a in WITNESSES[name]["args"]])
     return import_from_runner_output(res.vm.segments[0], res.public_address_ranges)
 
@@ -343,14 +355,17 @@ def port_native_witness_input(name):
     from cairo_m_tpu_torch.prover.adapter.native_import import native_prover_input
 
     program = witness_program("cairo_m_tpu_torch", name)
-    return native_prover_input(program, "main", call_slots(program, WITNESSES[name]["args"]))
+    entrypoint = witness_entrypoint(name)
+    return native_prover_input(program, entrypoint,
+                               call_slots(program, WITNESSES[name]["args"], entrypoint))
 
 
-def call_slots(program, args):
-    """Scalar arguments of ``main`` in the call-slot encoding the native
-    VM takes: a felt is one slot, a u32 two 16-bit limbs (low first)."""
+def call_slots(program, args, entrypoint="main"):
+    """Scalar arguments of ``entrypoint`` in the call-slot encoding the
+    native VM takes: a felt is one slot, a u32 two 16-bit limbs (low
+    first)."""
     out = []
-    for p, a in zip(program.get_entrypoint("main").params, args, strict=True):
+    for p, a in zip(program.get_entrypoint(entrypoint).params, args, strict=True):
         out += [a & 0xFFFF, a >> 16] if p.ty.kind == "u32" else [a]
     return out
 
