@@ -241,7 +241,9 @@ def log_trace(label: str, tr: dict):
         log(f"    {op['ms']:10.3f} ms {op['count']:7d}x {op['name']}")
 
 
-def _config(test_scale: bool):
+def scale_config(test_scale: bool):
+    """The protocol config, with the preprocessed tables set to its scale:
+    the tests' (``--test-scale``) or the production one."""
     if test_scale:
         config_mod.set_test_scale(**TEST_SCALE)
         return config_mod.test_config(**TEST_CONFIG)
@@ -401,7 +403,7 @@ def main(argv=None) -> int:
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         kernels.lib()  # build outside the timed proofs
-    cfg = _config(args.test_scale)
+    cfg = scale_config(args.test_scale)
     if args.cmd == "prove":
         runs = [r for r in args.runs.split(",") if r]
         bad = set(runs) - {"cold", "warm"}

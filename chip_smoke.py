@@ -16,6 +16,8 @@ Run from the repository root on a machine with one CUDA card:
                                      # machine with two cards or more
     python3 chip_smoke.py --fib1m    # phases 1 and 10: the largest proof
     python3 chip_smoke.py --sha256   # phases 1 and 11: the SHA-256 example
+    python3 chip_smoke.py --bench    # phases 1 and 12: the bench 5 times,
+                                     # the chain at full depth
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -46,7 +48,9 @@ Phases (each raises on failure, so the script exits non-zero):
    device (the card is the default); all three kernels must have launched
    during that run, a tree takes one leaf launch and at most three pyramid
    launches, and the launches of the warm prove are printed by shape; the
-   proof's digest and the peak device memory are kept for phase 9;
+   proof's digest must equal ``tests/golden/fib100k_production_sha256.json``
+   (the JAX package's proof of ``bench.py``'s input) and is kept for phase
+   9, with the peak device memory;
 5b. every AIR component, through the witnesses of
    ``tests/golden/witnesses.json`` (together they keep all 45 components
    busy): (a) each test-scale witness compiled, run by the native VM and
@@ -79,13 +83,14 @@ Phases (each raises on failure, so the script exits non-zero):
    fibonacci(2,000) with ``--max-steps 10000`` (two segments,
    ``REGULAR_96_BITS``, production tables) with ``--verify`` and ``verify``
    the file, and beside that chain prove a small run under ``--framing
-   stwo`` and ``verify`` it, and run phase 11(d); every exit code 0 and
-   every segment verified;
+   stwo`` and ``verify`` it, and run phase 11(d) and phase 12; every exit
+   code 0 and every segment verified;
 8. chained segments through ``prove_segments_multiprocess`` with two
    workers on ``cuda:0``: (a) fib-40 cut at 100 steps at test scale, every
    segment's proof digest equal to ``tests/golden/fib40_segments_sha256.json``;
-   (b) fibonacci(1,250,000) = 10,000,010 cycles cut at the production cap
-   2^20 - 1 into 10 segments at ``REGULAR_96_BITS``: the root chain holds,
+   (b) fibonacci(600,000) = 4,800,010 cycles cut at the production cap
+   2^20 - 1 into 5 segments at ``REGULAR_96_BITS`` (the 10,000,010-cycle
+   chain runs under ``--bench``, phase 12): the root chain holds,
    every proof verifies, and all three kernels launch in every segment;
 9. the row-sharded prover (``prove_sharded``, one process per rank): (a)
    fib-40 at test scale, two ranks on ``cuda:0`` under gloo, every rank's
@@ -137,7 +142,21 @@ Phases (each raises on failure, so the script exits non-zero):
    subprocesses: ``compile``, ``run --entrypoint main`` (the digest words),
    ``prove --entrypoint main --output --verify --device cuda`` (the file's
    segment equal to the ``main`` digest) and ``verify --device cuda``; the
-   full run runs (d) in phase 7, beside the other command-line chains.
+   full run runs (d) in phase 7, beside the other command-line chains;
+12. the repository's prover benches on the port, each in a fresh process
+   that cannot import JAX: ``python -m cairo_m_tpu_torch.bench`` (the
+   counterpart of ``bench.py``: fib-100k, a warm-up and a timed prove,
+   verify) once, its line showing stage ``done``, the proof verified,
+   800,010 cycles, the card of phase 1, and every kernel of the path
+   launched in the timed prove (its standard error); ``python -m
+   cairo_m_tpu_torch.bench_segments`` (the counterpart of
+   ``scripts/bench_segments.py``) at ``SEG_FIB_ITERS=300000``: 2,400,010
+   cycles in 3 segments at the production cap, the root chain holding,
+   every proof verified and every kernel launched in every segment.  Each
+   line is echoed.  The full run runs this phase in phase 7, beside the
+   command line's chains.  ``--bench`` runs the bench 5 times, each in a fresh
+   process, and the chain at its full depth (10,000,010 cycles, 10
+   segments), and prints the spread of the bench's lines.
 
 Launch counts are read per path: zeroed just before each path is driven
 and read just after (the segment, command-line and sharded paths count
@@ -157,6 +176,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor, wait
 
 import numpy as np
 import torch
@@ -166,6 +186,7 @@ sys.path.insert(0, REPO)
 
 from cairo_m_tpu_torch.compiler import compile_cairo  # noqa: E402
 from cairo_m_tpu_torch import kernels, profile  # noqa: E402
+from cairo_m_tpu_torch.bench import FIB_SRC  # noqa: E402  bench.py's source
 from cairo_m_tpu_torch.hash import blake2s  # noqa: E402
 from cairo_m_tpu_torch.prover import config  # noqa: E402
 from cairo_m_tpu_torch.isa.program import Program  # noqa: E402
@@ -181,26 +202,18 @@ from cairo_m_tpu_torch.parallel.sharded import prove_sharded  # noqa: E402
 from cairo_m_tpu_torch.prover.prove import upload_rows  # noqa: E402
 from cairo_m_tpu_torch.prover.stark import colpack  # noqa: E402
 
-FIB_SRC = """
-fn main(n: felt) -> felt {
-    let a = 0;
-    let b = 1;
-    let i = 0;
-    while i != n {
-        let t = a + b;
-        a = b;
-        b = t;
-        i = i + 1;
-    }
-    return a;
-}
-"""
 GOLDEN_DIR = os.path.join(REPO, "tests", "golden")
 DEV = torch.device("cuda:0")
 TEST_SCALE = {"rc_big_bits": 10, "bitwise_log": 8}
 TEST_CONFIG = {"n_queries": 8, "pow_bits": 2}
 CHAIN_ITERS = 1_250_000  # fibonacci(1,250,000) = 10,000,010 cycles
+WORKERS_ITERS = 600_000  # phase 8(b): 4,800,010 cycles, 5 segments
 STWO_ITERS = 10_000  # phase 6(b): 80,010 cycles under the stwo framing
+# the JAX package's proof of bench.py's input: fib-100k, REGULAR_96_BITS
+FIB100K_GOLDEN = "fib100k_production_sha256.json"
+# phase 12: fibonacci(300,000) = 2,400,010 cycles, 3 segments at the cap
+SEG_SMOKE_ITERS = 300_000
+BENCH_RUNS = 5  # bench lines of --bench
 SEGMENT_CAP = (1 << 20) - 1
 # the kernels every native-framing path must launch; the global-scratch
 # variant of the wide-tape kernel takes no plan of the prover today
@@ -679,6 +692,15 @@ def _golden(name):
         return json.load(f)["sha256"]
 
 
+def check_fib100k_digest(digest):
+    """Phase 5's proof against the JAX package's proof of the same input."""
+    want = _golden(FIB100K_GOLDEN)
+    log(f"  fib-100k proof sha256 {digest} "
+        f"({'equal to' if digest == want else 'DIFFERENT from'} the reference's {want})")
+    if digest != want:
+        raise AssertionError("the fib-100k proof differs from the reference's")
+
+
 def phase_test_scale(program, framing, golden):
     """fib-40 at test scale: CUDA proof == CPU proof == reference digest."""
     config.set_test_scale(**TEST_SCALE)
@@ -944,13 +966,24 @@ def _cli(*argv, timeout=900, out=None):
     return res
 
 
-def _cli_launches(res):
-    """Kernel launches the prove command reports for its segments."""
+def _launch_records(stderr: str) -> list:
+    """The ``kernel launches {...}`` records a child process printed, in
+    order (one a proof)."""
+    return [json.loads(m.group(1))
+            for m in re.finditer(r"kernel launches (\{.*\})", stderr)]
+
+
+def _sum_launches(records) -> dict:
     total = dict.fromkeys(kernels.launches, 0)
-    for m in re.finditer(r"kernel launches (\{.*\})", res.stderr):
-        for k, n in json.loads(m.group(1)).items():
+    for rec in records:
+        for k, n in rec.items():
             total[k] += n
     return total
+
+
+def _cli_launches(res):
+    """Kernel launches the prove command reports for its segments."""
+    return _sum_launches(_launch_records(res.stderr))
 
 
 def _cli_chain(tmp, prog, framing, arg, max_steps, n_segments, check, lines):
@@ -977,8 +1010,6 @@ def phase_cli(tmp, witnesses):
     SHA-256 example run side by side (each is mostly one process's cold
     start, host-side stwo trees or host verification), each chain's lines
     printed when it ends."""
-    from concurrent.futures import ThreadPoolExecutor
-
     src, prog = os.path.join(tmp, "fib.cm"), os.path.join(tmp, "fib.json")
     with open(src, "w") as f:
         f.write(FIB_SRC)
@@ -1033,11 +1064,11 @@ def phase_segments_test_scale():
 
 
 def phase_segments_full():
-    """fibonacci(1,250,000) in 10 segments at REGULAR_96_BITS, two workers
+    """fibonacci(600,000) in 5 segments at REGULAR_96_BITS, two workers
     on the card; rates as scripts/bench_segments.py defines them."""
     t = time.time()
     records = prove_segments_multiprocess(
-        FIB_SRC, "main", [CHAIN_ITERS], SEGMENT_CAP, devices=[str(DEV)],
+        FIB_SRC, "main", [WORKERS_ITERS], SEGMENT_CAP, devices=[str(DEV)],
         n_processes=2, timeout=900,
     )
     wall = time.time() - t
@@ -1559,6 +1590,101 @@ def phase_sha256(gen, known=None, cli=True):
     return launches
 
 
+def _say(msg, out=None):
+    """A line to ``out`` (a list) where given, else to the log."""
+    if out is None:
+        log(msg)
+    else:
+        out.append(msg)
+
+
+def run_entry(module, env, out=None):
+    """``python -m module`` with ``env`` added to the environment, in a
+    fresh process that cannot import JAX, its standard error and its line
+    echoed (to ``out`` where given); raise unless it exits with 0 and
+    prints exactly one line.  -> (the line, the process's standard error)."""
+    torch.cuda.empty_cache()  # the child gets the card's memory
+    t = time.time()
+    res = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_MODULE.format(repo=REPO, module=module, argv=[])],
+        capture_output=True, text=True, cwd=REPO, timeout=900,
+        env=dict(os.environ, **env),
+    )
+    for line in res.stderr.rstrip().splitlines():
+        _say(f"    {line}", out)
+    lines = res.stdout.strip().splitlines()
+    _say(f"  {module} {' '.join(f'{k}={v}' for k, v in env.items())}: rc "
+         f"{res.returncode}, {time.time() - t:.1f} s; its line:", out)
+    for line in lines:
+        _say(f"    {line}", out)
+    if res.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"{module} exited with {res.returncode} and "
+                             f"{len(lines)} lines on standard output")
+    return json.loads(lines[0]), res.stderr
+
+
+def _require_launched(rec, label):
+    for name in PATH_KERNELS:
+        if rec[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched in {label}")
+
+
+def phase_bench(runs: int, out=None):
+    """(a) ``python -m cairo_m_tpu_torch.bench`` ``runs`` times, each in a
+    fresh process; -> the timed proves' launches, summed."""
+    lines, recs = [], []
+    for i in range(runs):
+        line, err = run_entry("cairo_m_tpu_torch.bench", {"BENCH_FIB_ITERS": "100000"}, out)
+        d = line["detail"]
+        if d.get("stage") != "done" or d.get("verified") is not True:
+            raise AssertionError(f"bench run {i + 1}: stage {d.get('stage')}, "
+                                 f"verified {d.get('verified')}, error {d.get('error')}")
+        if d["n_cycles"] != 800_010 or d["device"] != torch.cuda.get_device_name(0):
+            raise AssertionError(f"bench run {i + 1}: {d['n_cycles']} cycles on {d['device']}")
+        (rec,) = _launch_records(err)
+        _require_launched(rec, f"bench run {i + 1}'s timed prove")
+        lines.append(line)
+        recs.append(rec)
+    if runs > 1:
+        for key, get in (("value", lambda l: l["value"]),
+                         ("prove_s", lambda l: l["detail"]["prove_s"]),
+                         ("warmup_s", lambda l: l["detail"]["warmup_s"])):
+            vals = [get(l) for l in lines]
+            _say(f"  bench {key} over {runs} runs: {min(vals)} .. {max(vals)} "
+                 f"({', '.join(map(str, vals))})", out)
+    return _sum_launches(recs)
+
+
+def phase_bench_segments(iters: int, out=None):
+    """(b) ``python -m cairo_m_tpu_torch.bench_segments`` for fibonacci(iters)
+    at the production cap; -> the segments' launches, summed."""
+    n_cycles = 8 * iters + 10
+    n_segments = -(-n_cycles // SEGMENT_CAP)
+    line, err = run_entry("cairo_m_tpu_torch.bench_segments",
+                          {"SEG_FIB_ITERS": str(iters), "SEG_MAX_STEPS": str(SEGMENT_CAP)},
+                          out)
+    recs = _launch_records(err)
+    if not (line["root_chain_ok"] is True and line["all_verified"] is True
+            and line["segments"] == len(recs) == n_segments
+            and line["total_cycles"] == n_cycles
+            and line["device"] == torch.cuda.get_device_name(0)):
+        raise AssertionError(f"bench_segments: expected {n_segments} verified segments "
+                             f"of {n_cycles} cycles in all on the card")
+    for k, rec in enumerate(recs):
+        _require_launched(rec, f"segment {k + 1}")
+    return _sum_launches(recs)
+
+
+def phase_benches(bench_runs: int, seg_iters: int, out=None) -> dict:
+    """Phase 12, its lines to ``out`` where given; -> launches by path."""
+    _say(f"  (a) python -m cairo_m_tpu_torch.bench [{time.time() - _START:.1f} s]", out)
+    paths = {"bench": phase_bench(bench_runs, out)}
+    _say(f"  (b) python -m cairo_m_tpu_torch.bench_segments "
+         f"[{time.time() - _START:.1f} s]", out)
+    paths["bench_segments"] = phase_bench_segments(seg_iters, out)
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -1589,6 +1715,12 @@ def main():
         log(f"card: {card_line()}")
         log("stopping after phase 11")
         return
+    if "--bench" in sys.argv[1:]:
+        phase("phase 12: the repository's prover benches on the port")
+        phase_benches(BENCH_RUNS, CHAIN_ITERS)
+        log(f"card: {card_line()}")
+        log("stopping after phase 12")
+        return
     if "--witnesses" in sys.argv[1:]:
         phase("phase 5b: every AIR component, the witnesses of tests/golden/witnesses.json")
         gen = torch.Generator(device=DEV)
@@ -1605,6 +1737,7 @@ def main():
         _, _, proof = prove_full(pi, config.REGULAR_96_BITS, "fib-100k")
         single_peak = torch.cuda.max_memory_allocated()
         log(f"  peak device memory {single_peak / 2**30:.2f} GiB ({single_peak} bytes)")
+        check_fib100k_digest(_digest(proof.to_json_obj()))
         phase("phase 9: the row-sharded prover")
         if nccl_only:
             phase_sharded_nccl(_digest(proof.to_json_obj()), single_peak)
@@ -1648,7 +1781,8 @@ def main():
     single_peak = torch.cuda.max_memory_allocated()
     single_digest = _digest(proof.to_json_obj())
     log(f"  peak device memory {single_peak / 2**30:.2f} GiB "
-        f"({single_peak} bytes); proof sha256 {single_digest}")
+        f"({single_peak} bytes)")
+    check_fib100k_digest(single_digest)
     for name in PATH_KERNELS:
         if paths["main"][name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
@@ -1722,9 +1856,20 @@ def main():
     if paths["stwo"]["wtape_run_plan"] <= 0:
         raise AssertionError("kernel wtape_run_plan never launched on the stwo path")
 
-    phase("phase 7: command line")
-    with tempfile.TemporaryDirectory() as tmp:
-        paths["cli"] = phase_cli(tmp, load_witnesses())
+    # phase 12's processes run beside phase 7's chains, which are mostly
+    # host work in processes of their own
+    phase("phase 7: command line, and beside it phase 12")
+    bench_lines = []
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
+        benches = pool.submit(phase_benches, 1, SEG_SMOKE_ITERS, bench_lines)
+        try:
+            paths["cli"] = phase_cli(tmp, load_witnesses())
+        finally:
+            wait([benches])
+            phase("phase 12: the repository's prover benches on the port, beside phase 7")
+            for line in bench_lines:
+                log(line)
+        paths.update(benches.result())
 
     phase("phase 8: chained segments, two workers on the card")
     phase_segments_test_scale()

@@ -7,6 +7,11 @@ is text or integers, so equality is exact.
   conformance corpus tests/mdtest/ (grouped by file) through both
   ``compile_cairo`` at both optimization levels: equal ``Program`` JSON, or
   the same diagnostics where compilation fails;
+- the 8 tutorial exercises of tutorials/cairomlings/, as shipped and as
+  solved (the ``SOLUTIONS`` of tests/test_cairomlings.py, applied as that
+  test applies them), through both ``compile_cairo`` at both optimization
+  levels: equal ``Program`` JSON, or equal diagnostics where an exercise as
+  shipped does not compile;
 - the formatter's output on the same sources;
 - the wasm lowering on the modules tests/test_wasm.py assembles in code;
 - the port's own mdtest runner passes the corpus (its compiler and VM
@@ -18,6 +23,7 @@ import os
 
 import pytest
 
+import test_cairomlings as C
 import test_wasm as W
 from cairo_m_tpu import compiler as rcompiler
 from cairo_m_tpu import wasm as rwasm
@@ -77,6 +83,37 @@ def test_compile_equal(case, level):
         compiled += want[0] == "program"
     if "diagnostics" not in case:
         assert compiled  # the case is not only failures
+
+
+def _cairomlings():
+    """{"<exercise>/shipped" or "<exercise>/solved": source text}."""
+    out = {}
+    for name in C.cairomlings.exercises():
+        _, src = C.cairomlings._load(name)
+        out[f"{name}/shipped"] = src
+        solved = src.replace("// " + C.cairomlings.NOT_DONE, "")
+        for old, new in C.SOLUTIONS[name]:
+            solved = solved.replace(old, new)
+        out[f"{name}/solved"] = solved
+    return out
+
+
+CAIROMLINGS = _cairomlings()
+
+
+def test_cairomlings_are_there():
+    assert len(CAIROMLINGS) == 16
+    assert sorted(C.SOLUTIONS) == C.cairomlings.exercises()
+
+
+@pytest.mark.parametrize("level", ["none", "standard"])
+@pytest.mark.parametrize("case", sorted(CAIROMLINGS))
+def test_cairomlings_compile_equal(case, level):
+    src = CAIROMLINGS[case]
+    want = _compile(rcompiler, src, level)
+    assert _compile(tcompiler, src, level) == want
+    if case.endswith("/solved"):
+        assert want[0] == "program"
 
 
 def _format(mod, lex_error, src):

@@ -37,6 +37,7 @@ from torch_port_helpers import (
     GOLDEN_DIR,
     both_at_test_scale,
     configs,
+    no_jax_command,
     proof_sha256,
 )
 
@@ -61,28 +62,13 @@ def fib40():
     return native_prover_input(compile_cairo(FIB_SRC).program, "main", [40])
 
 
-_NO_JAX = """
-import runpy, sys
-sys.modules["jax"] = None
-sys.modules["cairo_m_tpu"] = None
-sys.path.insert(0, {repo!r})
-sys.argv = ["cairo_m_tpu_torch.profile", *{argv!r}]
-try:
-    runpy.run_module("cairo_m_tpu_torch.profile", run_name="__main__")
-finally:
-    loaded = [m for m, v in sys.modules.items()
-              if v is not None and m.split(".")[0] in ("jax", "cairo_m_tpu")]
-    assert not loaded, loaded
-"""
-
-
 def test_profile_prove_command_without_jax(tmp_path):
     """(a)"""
     argv = ["prove", "--device", "cpu", "--test-scale", "--iters", "40",
             "--runs", "cold", "--verify", "--save-proof", str(tmp_path)]
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env.pop("CM_DEBUG_PHASES", None)
-    res = subprocess.run([sys.executable, "-c", _NO_JAX.format(repo=REPO, argv=argv)],
+    res = subprocess.run(no_jax_command("cairo_m_tpu_torch.profile", argv),
                          capture_output=True, text=True, cwd=REPO, env=env,
                          timeout=600)
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]

@@ -13,6 +13,7 @@ import hashlib
 import importlib
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -119,6 +120,31 @@ def proof_json(proof) -> str:
 
 def proof_sha256(proof) -> str:
     return hashlib.sha256(proof_json(proof).encode()).hexdigest()
+
+
+# a module of the port run as ``python -m`` in a fresh interpreter where
+# neither JAX nor the JAX package can be imported; it fails if either was
+# loaded all the same
+_NO_JAX_MODULE = """
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["cairo_m_tpu"] = None
+sys.path.insert(0, {repo!r})
+sys.argv = [{module!r}, *{argv!r}]
+try:
+    runpy.run_module({module!r}, run_name="__main__")
+finally:
+    loaded = [m for m, v in sys.modules.items()
+              if v is not None and m.split(".")[0] in ("jax", "cairo_m_tpu")]
+    assert not loaded, loaded
+"""
+
+
+def no_jax_command(module: str, argv=()) -> list:
+    """The command that runs ``python -m module *argv`` without JAX."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return [sys.executable, "-c",
+            _NO_JAX_MODULE.format(repo=repo, module=module, argv=list(argv))]
 
 
 def reference_fib40_proof(framing="native"):
