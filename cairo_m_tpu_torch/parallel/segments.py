@@ -17,8 +17,9 @@ exit (the counterpart of the reference's ``use_jax_distributed`` and its
 Chain integrity: the coordinator raises unless the segment set is complete
 and ``final_root(k) == initial_root(k+1)`` holds across every boundary.
 
-Each record also carries the worker that proved it, its prove and verify
-seconds, and the kernel launches of its prove + verify
+Each record also carries the worker that proved it and its device, its
+prove and verify seconds, the peak device memory of its prove + verify on
+that card, and the kernel launches of its prove + verify
 (``cairo_m_tpu_torch.kernels.launches``), so a caller can show that the
 CUDA kernels ran inside the workers.  Workers never import JAX.
 """
@@ -47,15 +48,19 @@ def _worker_main(argv):
     ap.add_argument("--device", required=True)
     args = ap.parse_args(argv)
 
+    import torch
+
     from .. import kernels
     from ..compiler import compile_cairo
-    from ..device import resolve_device
+    from ..device import use_device
     from ..prover.adapter.native_import import native_segment_prover_inputs
     from ..prover.config import REGULAR_96_BITS, set_test_scale, test_config
     from ..prover.prove import prove_cairo_m
     from ..prover.verify import verify_cairo_m
 
-    device = resolve_device(args.device)
+    # the worker's card is current before anything is allocated
+    device = use_device(args.device)
+    cuda = device.type == "cuda"
     if args.torch_distributed:
         if not args.coordinator:
             raise ValueError("--torch-distributed needs --coordinator")
@@ -85,6 +90,8 @@ def _worker_main(argv):
         if k % args.num_procs != args.proc_id:
             continue
         kernels.reset_launches()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
         t = time.perf_counter()
         proof = prove_cairo_m(pi, cfg, device=device)
         prove_s = time.perf_counter() - t
@@ -94,6 +101,9 @@ def _worker_main(argv):
             {
                 "segment": k,
                 "worker": args.proc_id,
+                "device": str(device),
+                "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                               if cuda else None),
                 "initial_root": pi.merkle_trees.initial_root,
                 "final_root": pi.merkle_trees.final_root,
                 "n_steps": pi.total_steps,
@@ -147,7 +157,8 @@ def prove_segments_multiprocess(
     ``devices[i % len(devices)]``; round-robin the continuation segments
     across them, collect the proofs, check the Poseidon2 root chain, and
     return the ordered per-segment records.  The default is the first card;
-    a worker whose device is a card that does not exist raises.
+    a worker whose device is a card that does not exist raises, and a
+    worker on ``cuda:k`` makes that card current before it allocates.
     ``use_torch_distributed``: the workers join one gloo process group
     whose store is a file in the job's directory (a reserved-then-closed
     port can be taken by another job before the group binds it), and meet

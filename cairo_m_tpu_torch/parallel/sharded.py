@@ -48,8 +48,10 @@ tops, the stwo commit stacks and the FRI layers that leave the device
 Values cross as int32: every field value is below 2^31 and a digest word
 keeps its 32 bits, half the bytes of the int64 carrier.  Under gloo a
 device tensor goes through host memory for the collective and back
-(`_staged`, the one place that does it); NCCL takes device tensors and
-needs one card per rank (`rank_devices`).  Outside ``prover_mesh`` every
+(`_staged`, the one place that does it, and which refuses a tensor off
+the mesh's device under either backend); NCCL takes device tensors and
+needs one card per rank (`rank_devices`), each rank's card current before
+it joins the group (`make_row_mesh`).  Outside ``prover_mesh`` every
 primitive here is unused and `maybe_shard` is a no-op: the single-device
 prover keeps its own code path.
 
@@ -63,6 +65,7 @@ from __future__ import annotations
 
 import json
 import os
+import resource
 import subprocess
 import sys
 import tempfile
@@ -164,31 +167,38 @@ def make_row_mesh(world_size=None, *, backend, init_method=None, device=None,
 
     Without an initialised group, ``world_size``, ``rank`` and
     ``init_method`` (``file://...`` on one host, or ``tcp://host:port``)
-    are required.  ``device`` defaults to ``cuda:{rank % device_count}``;
-    NCCL makes it the current card."""
-    if not dist.is_initialized():
+    are required.  ``device`` defaults to ``cuda:{rank % device_count}``
+    (`rank_devices`).  A rank on a card makes that card current before it
+    joins the group, so that nothing it does makes a context on another
+    card; an NCCL group is bound to the card as it is made."""
+    from ..device import use_device
+
+    if dist.is_initialized():
+        rank, ws = dist.get_rank(), dist.get_world_size()
+        if world_size is not None and world_size != ws:
+            raise ValueError(f"world size {world_size}, but the group has {ws}")
+        if dist.get_backend() != backend:
+            raise ValueError(f"backend {backend!r}, but the group runs "
+                             f"{dist.get_backend()!r}")
+    else:
         if world_size is None or rank is None or init_method is None:
             raise ValueError("make_row_mesh: world_size, rank and init_method "
                              "are needed to join a process group")
         if backend not in ("gloo", "nccl"):
             raise ValueError(f"backend {backend!r}: use 'gloo' or 'nccl'")
-        dist.init_process_group(backend, init_method=init_method, rank=rank,
-                                world_size=world_size)
-    rank, ws = dist.get_rank(), dist.get_world_size()
-    if world_size is not None and world_size != ws:
-        raise ValueError(f"world size {world_size}, but the group has {ws}")
+        ws = world_size
     if ws & (ws - 1) or ws > MAX_WORLD_SIZE:
         raise ValueError(f"world size {ws}: must be a power of two, at most "
                          f"{MAX_WORLD_SIZE}")
-    if dist.get_backend() != backend:
-        raise ValueError(f"backend {backend!r}, but the group runs "
-                         f"{dist.get_backend()!r}")
-    from ..device import resolve_device
-
-    device = resolve_device(device if device is not None
-                            else rank_devices(ws, backend)[rank])
-    if backend == "nccl":
-        torch.cuda.set_device(device)
+    if device is None:
+        device = rank_devices(ws, backend)[rank]
+    if backend == "nccl" and torch.device(device).type != "cuda":
+        raise ValueError(f"backend 'nccl' needs a CUDA device, got {device}")
+    device = use_device(device)
+    if not dist.is_initialized():
+        dist.init_process_group(
+            backend, init_method=init_method, rank=rank, world_size=ws,
+            device_id=device if backend == "nccl" else None)
     return RowMesh(dist.group.WORLD, rank, ws, device, backend)
 
 
@@ -327,14 +337,21 @@ def _staged(mesh: RowMesh, fn, *tensors):
     """Run collective ``fn`` over ``tensors`` and return its outputs on the
     mesh's device, counting its seconds.
 
-    gloo takes no device tensors for most collectives, so under gloo a
-    device tensor is copied to the host and the result back; the card is
-    synchronised first (the copy would wait for it anyway) so that the
-    seconds are the exchange's own.  NCCL runs on the device, in stream
-    order: two CUDA events around it are read later (`RowMesh.stats`), and
-    nothing waits for the card here."""
+    Every input must lie on the mesh's device, under every backend (NCCL
+    takes no host tensors, and an exchange on the wrong device is a fault
+    of the caller that gloo would hide): anything else raises.  gloo takes
+    no device tensors for most collectives, so under gloo a device tensor
+    is copied to the host and the result back; the card is synchronised
+    first (the copy would wait for it anyway) so that the seconds are the
+    exchange's own.  NCCL runs on the device, in stream order: two CUDA
+    events around it are read later (`RowMesh.stats`), and nothing waits
+    for the card here."""
+    for x in tensors:
+        if x.device != mesh.device:
+            raise ValueError(f"an exchange got a tensor on {x.device}; the "
+                             f"mesh's device is {mesh.device}")
     mesh.n_exchanges += 1
-    dev = tensors[0].device
+    dev = mesh.device
     if mesh.backend == "nccl":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -673,6 +690,10 @@ def _rank_main(argv):
             "launches": dict(kernels.launches), "exchange": mesh.stats()})
     if cuda:
         record["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+    # the rank's own peak resident set (Linux reports KiB): each rank runs
+    # the whole VM and adapter
+    record["host_peak_bytes"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss * 1024
     record["proof"] = proof.to_json_obj()
     with open(os.path.join(args.workdir, f"rank_{args.rank}.json"), "w") as f:
         json.dump(record, f)
@@ -694,8 +715,8 @@ def prove_sharded(source: str, entrypoint: str, args, *, world_size: int,
     VM + adapter and proves ``runs`` times under the mesh; every rank's
     proof must be byte-equal, and rank 0's is returned.  ``records`` (a
     list) receives each rank's record: seconds and phases per run, kernel
-    launches and exchange bytes/seconds per run, peak device memory.  A
-    rank that fails makes this raise."""
+    launches and exchange bytes/seconds per run, peak device memory on its
+    own card, peak host memory.  A rank that fails makes this raise."""
     from ..prover.config import REGULAR_96_BITS
     from ..prover.prove import Proof
 

@@ -12,8 +12,8 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py --sharded  # phases 1, 5 and 9: the way to iterate
                                      # on the row-sharded prover, and the
                                      # witness upload routes
-    python3 chip_smoke.py --nccl     # phases 1, 5 and 9(c) only, on a
-                                     # machine with two cards or more
+    python3 chip_smoke.py --nccl     # phases 1, 5 and 13 only, on a
+                                     # machine with four cards
     python3 chip_smoke.py --fib1m    # phases 1 and 10: the largest proof
     python3 chip_smoke.py --sha256   # phases 1 and 11: the SHA-256 example
     python3 chip_smoke.py --bench    # phases 1 and 12: the bench 5 times,
@@ -99,9 +99,9 @@ Phases (each raises on failure, so the script exits non-zero):
    warm prove per rank: the proof byte-equal to phase 5's on every rank and
    verified, all three kernels launched in every rank's warm prove, each
    rank's peak device memory below phase 5's; each rank's seconds, phases
-   and exchange bytes and seconds are printed; (c) on a machine with two
-   cards or more, (b) again under NCCL with one card a rank.  Every run
-   prints its backend.  The ranks load the kernel library phase 1 built.
+   and exchange bytes and seconds are printed (NCCL, one card a rank:
+   phase 13).  Every run prints its backend.  The ranks load the kernel
+   library phase 1 built.
    Under ``--sharded`` only, the two witness upload routes are timed on the
    fib-100k witness (``prove.upload_rows``: bytes and copy seconds;
    ``colpack.upload_stack``: host classify seconds, packed bytes, copy and
@@ -156,7 +156,28 @@ Phases (each raises on failure, so the script exits non-zero):
    line is echoed.  The full run runs this phase in phase 7, beside the
    command line's chains.  ``--bench`` runs the bench 5 times, each in a fresh
    process, and the chain at its full depth (10,000,010 cycles, 10
-   segments), and prints the spread of the bench's lines.
+   segments), and prints the spread of the bench's lines;
+13. under ``--nccl`` only, after phase 5, on a machine with four cards
+   (it raises with fewer): (a) fib-40 at test scale on 2 and on 4 NCCL
+   ranks, one card a rank, every rank's proof equal to
+   ``tests/golden/fib40_proof_sha256.json``; (b) fib-100k at
+   ``REGULAR_96_BITS`` on 2 ranks (cards 0-1) and on 4 (cards 0-3), each
+   rank cold then warm, every rank's proof equal to phase 5's and to
+   ``tests/golden/fib100k_production_sha256.json`` and verified; (c)
+   fibonacci(1,000,000) on 4 ranks, cold then warm, equal to
+   ``tests/golden/fib1m_card_proof_sha256.json`` and verified; (b) and (c)
+   print a line a rank: its card, cold and warm seconds, peak device
+   memory on its card, peak host memory, the warm prove's exchanges
+   (count, bytes, seconds) and kernel launches; (d) on every card, the leaf
+   kernel, the pyramid kernel and kernel B (both variants) bit for bit
+   against their plain versions on that card, launched from this process
+   while its current card stays ``cuda:0``, each timed there; (e) phase
+   8(b)'s chain on two workers on ``cuda:0`` and on four workers, one a
+   card: every segment's digest equal between the two, the root chain
+   intact, each segment's card, seconds and peak printed, both walls.
+   (d) and (e) run first, then (a), and (b) and (c) only once (a) passed;
+   every part that can runs, and any failure makes the script exit
+   non-zero.  Its last line names the four cards' count.
 
 Launch counts are read per path: zeroed just before each path is driven
 and read just after (the segment, command-line and sharded paths count
@@ -176,6 +197,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor, wait
 
 import numpy as np
@@ -232,31 +254,38 @@ def phase(msg):
     log(f"{msg} [{time.time() - _START:.1f} s]")
 
 
-def card_line() -> str:
-    return subprocess.run(
+def card_line(every: bool = False) -> str:
+    """The first card's name and power limit, or ``every`` card's, "; "
+    between them."""
+    lines = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    ).stdout.strip().splitlines()
+    return "; ".join(lines) if every else lines[0]
 
 
-def time_ms(fn, reps: int = 10, warm: bool = True, queued: bool = False) -> float:
-    """Mean time of ``fn`` over ``reps`` calls between two CUDA events, after
-    one warm-up.  The card waits wherever the host enqueues slower than it
-    runs, as it does in the prover; ``queued=True`` holds the card busy
-    (~20 ms of `torch.cuda._sleep`) while the host enqueues every call, so
-    that the reading is the card's time alone."""
+def time_ms(fn, reps: int = 10, warm: bool = True, queued: bool = False,
+            device=DEV) -> float:
+    """Mean time of ``fn`` over ``reps`` calls between two CUDA events on
+    ``device``'s current stream, after one warm-up; the calling thread's
+    current card stays what it was.  The card waits wherever the host
+    enqueues slower than it runs, as it does in the prover; ``queued=True``
+    holds the card busy (~20 ms of `torch.cuda._sleep`) while the host
+    enqueues every call, so that the reading is the card's time alone."""
     if warm:
         fn()
+    stream = torch.cuda.current_stream(device)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(device)
     if queued:
-        torch.cuda._sleep(40_000_000)
-    start.record()
+        with torch.cuda.device(device):
+            torch.cuda._sleep(40_000_000)
+    start.record(stream)
     for _ in range(reps):
         fn()
-    end.record()
-    torch.cuda.synchronize()
+    end.record(stream)
+    torch.cuda.synchronize(device)
     return start.elapsed_time(end) / reps
 
 
@@ -504,8 +533,8 @@ class _FakeChannel:
 
 
 def _plain(rows, consts, plan):
-    instrs, out_regs = wtape._plan_arrays(plan, rows.shape[0], DEV)
-    cdev = torch.from_numpy(np.asarray(consts, np.int64)).to(DEV)
+    instrs, out_regs = wtape._plan_arrays(plan, rows.shape[0], rows.device)
+    cdev = torch.from_numpy(np.asarray(consts, np.int64)).to(rows.device)
     return wtape.run_plan_plain(rows, cdev, instrs, out_regs, plan.n_regs, plan.width)
 
 
@@ -1063,19 +1092,22 @@ def phase_segments_test_scale():
     return records
 
 
-def phase_segments_full():
-    """fibonacci(600,000) in 5 segments at REGULAR_96_BITS, two workers
-    on the card; rates as scripts/bench_segments.py defines them."""
+def run_chain(devices, n_processes):
+    """fibonacci(600,000) in 5 segments at REGULAR_96_BITS, worker i on
+    ``devices[i % len(devices)]``; every segment verified and every kernel
+    of the path launched in it; rates as scripts/bench_segments.py defines
+    them.  -> (records, wall seconds)."""
     t = time.time()
     records = prove_segments_multiprocess(
-        FIB_SRC, "main", [WORKERS_ITERS], SEGMENT_CAP, devices=[str(DEV)],
-        n_processes=2, timeout=900,
+        FIB_SRC, "main", [WORKERS_ITERS], SEGMENT_CAP, devices=devices,
+        n_processes=n_processes, timeout=900,
     )
     wall = time.time() - t
     for r in records:
-        log(f"  segment {r['segment']} (worker {r['worker']}): {r['n_steps']} "
-            f"cycles, prove {r['prove_s']:.3f} s, verify {r['verify_s']:.3f} s, "
-            f"launches {r['launches']}")
+        log(f"  segment {r['segment']} (worker {r['worker']} on {r['device']}): "
+            f"{r['n_steps']} cycles, prove {r['prove_s']:.3f} s, verify "
+            f"{r['verify_s']:.3f} s, peak device memory "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB, launches {r['launches']}")
         for name in PATH_KERNELS:
             if r["launches"][name] <= 0:
                 raise AssertionError(f"kernel {name} never launched in segment {r['segment']}")
@@ -1086,12 +1118,19 @@ def phase_segments_full():
     firsts = {min(r["segment"] for r in records if r["worker"] == w)
               for w in {r["worker"] for r in records}}
     warm = [r for r in records if r["segment"] not in firsts]
-    warm_cps = sum(r["n_steps"] for r in warm) / sum(r["prove_s"] for r in warm)
-    log(f"  chain: {len(records)} segments, {total} cycles, root chain ok, all "
-        f"verified; {total / prove_s:.1f} cycles/s over prove seconds "
-        f"({prove_s:.3f} s), warm {warm_cps:.1f} cycles/s over "
-        f"{len(warm)} segments; wall {wall:.2f} s ({total / wall:.1f} cycles/s "
-        f"end to end, VM, proving and verifying in 2 workers)")
+    warm_cps = (f"{sum(r['n_steps'] for r in warm) / sum(r['prove_s'] for r in warm):.1f}"
+                if warm else "no")
+    log(f"  chain on {n_processes} workers ({sorted(set(map(str, devices)))}): "
+        f"{len(records)} segments, {total} cycles, root chain ok, all verified; "
+        f"{total / prove_s:.1f} cycles/s over prove seconds ({prove_s:.3f} s), "
+        f"warm {warm_cps} cycles/s over {len(warm)} segments; wall {wall:.2f} s "
+        f"({total / wall:.1f} cycles/s end to end, VM, proving and verifying)")
+    return records, wall
+
+
+def phase_segments_full():
+    """8(b): the chain on two workers on the card; -> its launches."""
+    records, _ = run_chain([str(DEV)], 2)
     launches = dict.fromkeys(kernels.launches, 0)
     for r in records:
         for k, n in r["launches"].items():
@@ -1161,53 +1200,66 @@ def _rank_lines(label, records):
                 f"{ex['seconds']:.3f} s; launches {run['launches']}")
 
 
-def phase_sharded_test_scale():
-    """(a) fib-40 at test scale, two gloo ranks on the card."""
+def phase_sharded_test_scale(world_size=2, backend="gloo", devices=(str(DEV),)):
+    """(a) fib-40 at test scale on ``world_size`` ranks: every rank's proof
+    equal to the reference digest."""
     t = time.time()
     records = []
     proof = prove_sharded(
-        FIB_SRC, "main", [40], world_size=2, backend="gloo", devices=[str(DEV)],
-        config=config.test_config(**TEST_CONFIG), test_scale=TEST_SCALE,
-        records=records, timeout=600)
+        FIB_SRC, "main", [40], world_size=world_size, backend=backend,
+        devices=list(devices), config=config.test_config(**TEST_CONFIG),
+        test_scale=TEST_SCALE, records=records, timeout=300)
     _rank_lines("fib-40", records)
     got = [_digest(r["proof"]) for r in records]
     want = _golden("fib40_proof_sha256.json")
-    log(f"  fib-40 sharded, 2 ranks on {DEV} under gloo, {time.time() - t:.2f} s: "
-        f"digests {got} (reference {want})")
-    if got != [want] * 2 or _digest(proof.to_json_obj()) != want:
+    log(f"  fib-40 sharded, {world_size} ranks on {sorted(set(devices))} under "
+        f"{backend}, {time.time() - t:.2f} s: digests {got} (reference {want})")
+    if got != [want] * world_size or _digest(proof.to_json_obj()) != want:
         raise AssertionError("sharded fib-40 proofs do not match the reference digest")
 
 
-def _sharded_full(world_size, backend, devices, single_digest, single_peak):
-    """fib-100k at REGULAR_96_BITS on ``world_size`` ranks: a cold and a
-    warm prove per rank; checks and prints; -> launches summed over ranks
-    and runs."""
+def _sharded_full(world_size, backend, devices, want_digest, single_peak,
+                  iters=100_000, golden=FIB100K_GOLDEN, timeout=900):
+    """fibonacci(``iters``) at REGULAR_96_BITS on ``world_size`` ranks: a
+    cold and a warm prove per rank, every rank's proof equal to
+    ``want_digest`` (the single card's) and to ``golden``, verified, each
+    rank's peak device memory below ``single_peak``; one line a rank.
+    -> launches summed over ranks and runs."""
+    label = f"fib({iters})"
     t = time.time()
     records = []
     proof = prove_sharded(
-        FIB_SRC, "main", [100_000], world_size=world_size, backend=backend,
+        FIB_SRC, "main", [iters], world_size=world_size, backend=backend,
         devices=devices, config=config.REGULAR_96_BITS, runs=2,
-        records=records, timeout=900)
+        records=records, timeout=timeout)
     wall = time.time() - t
-    _rank_lines("fib-100k", records)
+    _rank_lines(label, records)
+    digests = [_digest(r["proof"]) for r in records]
     digest = _digest(proof.to_json_obj())
-    log(f"  fib-100k sharded, {world_size} ranks on {devices} under {backend}, wall "
-        f"{wall:.2f} s: proof sha256 {digest} "
-        f"({'equal to' if digest == single_digest else 'DIFFERENT from'} phase 5's)")
-    if digest != single_digest:
+    golden_digest = _golden(golden)
+    log(f"  {label} sharded, {world_size} ranks on {devices} under {backend}, wall "
+        f"{wall:.2f} s: every rank's proof sha256 {digest} "
+        f"({'equal to' if digest == want_digest else 'DIFFERENT from'} the single "
+        f"card's, {'equal to' if digest == golden_digest else 'DIFFERENT from'} "
+        f"{golden})")
+    if digests != [digest] * world_size or digest != want_digest:
         raise AssertionError("the sharded proof differs from the single-device proof")
+    if digest != golden_digest:
+        raise AssertionError(f"the sharded proof differs from {golden}")
     t = time.time()
     if not verify_cairo_m(proof, config.REGULAR_96_BITS):
         raise AssertionError("the sharded proof did not verify")
     log(f"  verified in {time.time() - t:.3f} s")
     for r in records:
-        warm = r["runs"][-1]
-        peak = r["max_memory_allocated"]
-        log(f"  rank {r['rank']}: cold {r['runs'][0]['seconds']:.3f} s, warm "
-            f"{warm['seconds']:.3f} s ({r['n_steps'] / warm['seconds']:.1f} cycles/s); "
-            f"peak device memory {peak / 2**30:.2f} GiB ({peak} bytes) against "
-            f"{single_peak / 2**30:.2f} GiB single-device; warm exchanges "
-            f"{warm['exchange']['bytes']} bytes, {warm['exchange']['seconds']:.3f} s")
+        cold, warm = r["runs"][0], r["runs"][-1]
+        peak, ex = r["max_memory_allocated"], warm["exchange"]
+        log(f"  rank {r['rank']} on {r['device']} ({backend}, {world_size} ranks): "
+            f"cold {cold['seconds']:.3f} s, warm {warm['seconds']:.3f} s "
+            f"({r['n_steps'] / warm['seconds']:.1f} cycles/s); peak device memory "
+            f"{peak / 2**30:.2f} GiB ({peak} bytes) against {single_peak / 2**30:.2f} "
+            f"GiB on a single card; host peak {r['host_peak_bytes'] / 2**30:.2f} GiB; "
+            f"warm exchanges {ex['exchanges']}, {ex['bytes']} bytes, "
+            f"{ex['seconds']:.3f} s; warm launches {warm['launches']}")
         for name in PATH_KERNELS:
             if warm["launches"][name] <= 0:
                 raise AssertionError(f"kernel {name} never launched in rank {r['rank']}")
@@ -1222,25 +1274,9 @@ def _sharded_full(world_size, backend, devices, single_digest, single_peak):
     return launches
 
 
-def phase_sharded_nccl(single_digest, single_peak):
-    """(c) NCCL, one card a rank, min(4, cards) ranks."""
-    count = torch.cuda.device_count()
-    ws = 1 << (min(4, count).bit_length() - 1)
-    _sharded_full(ws, "nccl", [f"cuda:{i}" for i in range(ws)],
-                  single_digest, single_peak)
-
-
 def phase_sharded_full(single_digest, single_peak):
-    """(b) two gloo ranks on the card; (c) NCCL, one card a rank, where the
-    machine has two cards or more."""
-    launches = _sharded_full(2, "gloo", [str(DEV)], single_digest, single_peak)
-    count = torch.cuda.device_count()
-    if count >= 2:
-        phase_sharded_nccl(single_digest, single_peak)
-    else:
-        log(f"  (c) skipped: {count} card visible; NCCL ranks need two cards "
-            "or more, one a rank")
-    return launches
+    """(b) two gloo ranks on the card (NCCL, one card a rank: phase 13)."""
+    return _sharded_full(2, "gloo", [str(DEV)], single_digest, single_peak)
 
 
 FIB1M_ITERS = 1_000_000  # fibonacci(1,000,000) = 8,000,010 cycles, one segment
@@ -1685,6 +1721,138 @@ def phase_benches(bench_runs: int, seg_iters: int, out=None) -> dict:
     return paths
 
 
+# phase 13, --nccl: the machine's four cards
+NCCL_CARDS = 4
+# the single card's fib(1M) peak device memory (PERF.md §6)
+FIB1M_SINGLE_PEAK_GIB = (37.26, 37.95)
+# PERF.md's kernel table, card 0: the shapes 13(d) times on every card
+PERF_CARD0_MS = {"blake2s_leaves": 0.0647, "blake2s_pyramid": 0.1035,
+                 "wtape_run_plan": 1.1943}
+
+
+def kernels_on_card(card, gen, job):
+    """13(d) on ``card``, every launch made from this thread while its
+    current card stays cuda:0: the leaf kernel at (4, 2^20), the pyramid
+    kernel over 2^20 leaf digests, and kernel B, both variants, on the
+    plan ``job`` (name, plan, lanes, constants); each bit for bit against
+    its plain version on the same card, and timed there.
+    -> {kernel: (max_abs_err, ms)}."""
+    dev = torch.device(card)
+    out = {}
+
+    def check(name, fn, want, timed=None):
+        before = kernels.launches[name]
+        got = fn()
+        if kernels.launches[name] <= before:
+            raise AssertionError(f"{name} did not launch on {card}")
+        if torch.cuda.current_device() != 0:
+            raise AssertionError(f"{name} on {card} left the current card changed")
+        if got.device != dev:
+            raise AssertionError(f"{name} on {card} wrote to {got.device}")
+        out[name] = [max_abs_err(got, want), time_ms(timed or fn, device=dev)]
+
+    k, n = BLAKE2S_MAIN
+    cols = _rand((k, n), 1 << 32, gen).to(dev)
+    check("blake2s_leaves", lambda: blake2s.hash_leaves(cols),
+          torch.stack(blake2s.hash_words(list(cols))))
+    m = PYRAMID_MAIN
+    packed = torch.zeros((8, 2 * m - 1), dtype=torch.int64, device=dev)
+    packed[:, :m] = _rand((8, m), 1 << 32, gen).to(dev)
+    # timed in place: the levels above the leaves are written again
+    check("blake2s_pyramid", lambda: blake2s.merkle_pyramid(packed.clone()),
+          blake2s.merkle_pyramid_plain(packed.clone()),
+          lambda: blake2s.merkle_pyramid(packed))
+    _, plan, n, consts = job
+    rows = _rand((len(plan.used_bank), n), (1 << 31) - 1, gen).to(dev)
+    cdev = torch.from_numpy(np.asarray(consts, np.int64)).to(dev)
+    want = _plain(rows, consts, plan)
+    check("wtape_run_plan", lambda: wtape.run_plan(rows, cdev, plan, variant="smem"),
+          want)
+    check("wtape_run_plan_global",
+          lambda: wtape.run_plan(rows, cdev, plan, variant="global"), want)
+    return out
+
+
+def phase_kernels_every_card(pi, cards):
+    """13(d): `kernels_on_card` on every card; one line a card and kernel."""
+    if torch.cuda.current_device() != 0:
+        raise AssertionError("the smoke test's current card is not cuda:0")
+    job = next(j for j in witness_plans(pi) if j[0] == WTAPE_MAIN)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(13)
+    per_card = {card: kernels_on_card(card, gen, job) for card in cards}
+    for name in per_card[cards[0]]:
+        cells = ", ".join(f"{card} {ms:.4f} ms (max_abs_err {e})"
+                          for card, r in per_card.items() for e, ms in [r[name]])
+        table = PERF_CARD0_MS.get(name)
+        log(f"  {name}: {cells}; PERF.md's table, card 0: "
+            + (f"{table} ms" if table else "not at this shape"))
+    err = max(e for r in per_card.values() for e, _ in r.values())
+    if err:
+        raise AssertionError(f"a kernel disagrees with its plain version: {err}")
+    log(f"  every kernel bit-equal to its plain version on {cards}, launched "
+        "from a thread whose current card is cuda:0")
+
+
+def phase_chain_four_cards(cards):
+    """13(e): phase 8(b)'s chain on two workers on cuda:0, then on four
+    workers, one a card: every segment's digest equal, root chain intact."""
+    one, wall_one = run_chain([str(DEV)], 2)
+    four, wall_four = run_chain(cards, len(cards))
+    used = sorted({r["device"] for r in four})
+    if used != sorted(cards):
+        raise AssertionError(f"the four workers proved on {used}, not {cards}")
+    a = [_digest(r["proof"]) for r in one]
+    b = [_digest(r["proof"]) for r in four]
+    log(f"  segment digests: one card {a}; four cards "
+        f"{'equal' if a == b else 'DIFFERENT: ' + str(b)}")
+    if a != b:
+        raise AssertionError("the four-card chain's segments differ from the one-card chain's")
+    log(f"  wall: two workers on {DEV} {wall_one:.2f} s, four workers on "
+        f"{len(cards)} cards {wall_four:.2f} s ({wall_four / wall_one:.3f} of it)")
+
+
+def phase_four_cards(single_digest, single_peak, pi):
+    """Phase 13, in the order that tells most if a part fails: (d) and
+    (e), which need no NCCL, then (a), and (b) and (c) only once (a)
+    passed.  Every part runs that can; any failure makes this raise at
+    the end."""
+    cards = [f"cuda:{i}" for i in range(NCCL_CARDS)]
+    failed = []
+
+    def part(label, fn):
+        phase(f"phase 13{label}")
+        try:
+            fn()
+            return True
+        except Exception as e:  # noqa: BLE001 -- raised again below
+            traceback.print_exc()
+            sys.stdout.flush()
+            failed.append(f"13{label.split(':')[0]}: {type(e).__name__}: {e}")
+            return False
+
+    part("(d): kernels A and B against their plain versions on every card",
+         lambda: phase_kernels_every_card(pi, cards))
+    part("(e): the 5-segment chain on one card and on four",
+         lambda: phase_chain_four_cards(cards))
+    if part("(a): fib-40 at test scale on 2 and 4 NCCL ranks",
+            lambda: [phase_sharded_test_scale(ws, "nccl", cards[:ws])
+                     for ws in (2, 4)]):
+        part("(b): fib-100k on 2 and 4 NCCL ranks, cold and warm",
+             lambda: [_sharded_full(ws, "nccl", cards[:ws], single_digest,
+                                    single_peak) for ws in (2, 4)])
+        lo, hi = FIB1M_SINGLE_PEAK_GIB
+        log(f"  (c)'s single card: peak {lo}-{hi} GiB (PERF.md §6)")
+        part(f"(c): fibonacci({FIB1M_ITERS:,}) on {NCCL_CARDS} NCCL ranks",
+             lambda: _sharded_full(NCCL_CARDS, "nccl", cards, _golden(FIB1M_GOLDEN),
+                                   int(lo * 2**30), iters=FIB1M_ITERS,
+                                   golden=FIB1M_GOLDEN, timeout=600))
+    else:
+        failed.append("13(b), 13(c): not run, NCCL failed in (a)")
+    if failed:
+        raise AssertionError("phase 13 failed: " + "; ".join(failed))
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -1697,8 +1865,9 @@ def main():
     kernels.lib()
     log(f"phase 1: kernels built in {time.time() - t:.2f} s")
     nccl_only = "--nccl" in sys.argv[1:]
-    if nccl_only and torch.cuda.device_count() < 2:
-        raise RuntimeError("--nccl needs two cards or more, one a rank")
+    if nccl_only and torch.cuda.device_count() < NCCL_CARDS:
+        raise RuntimeError(f"--nccl needs {NCCL_CARDS} cards, one a rank; "
+                           f"{torch.cuda.device_count()} visible")
     if "--fib1m" in sys.argv[1:]:
         gen = torch.Generator(device=DEV)
         gen.manual_seed(2024)
@@ -1738,13 +1907,23 @@ def main():
         single_peak = torch.cuda.max_memory_allocated()
         log(f"  peak device memory {single_peak / 2**30:.2f} GiB ({single_peak} bytes)")
         check_fib100k_digest(_digest(proof.to_json_obj()))
-        phase("phase 9: the row-sharded prover")
         if nccl_only:
-            phase_sharded_nccl(_digest(proof.to_json_obj()), single_peak)
-        else:
-            phase_upload_routes(pi)
-            phase_sharded_test_scale()
-            phase_sharded_full(_digest(proof.to_json_obj()), single_peak)
+            phase(f"phase 13: {NCCL_CARDS} cards")
+            phase_four_cards(_digest(proof.to_json_obj()), single_peak, pi)
+            loaded = sorted(m for m, v in sys.modules.items()
+                            if v is not None and m.split(".")[0] in ("jax", "cairo_m_tpu"))
+            if loaded:
+                raise AssertionError(f"modules of JAX or of the JAX package were loaded: {loaded}")
+            phase("phase 13 passed")
+            log(f"cards: {card_line(every=True)}")
+            log(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}}))
+            return
+        phase("phase 9: the row-sharded prover")
+        phase_upload_routes(pi)
+        phase_sharded_test_scale()
+        phase_sharded_full(_digest(proof.to_json_obj()), single_peak)
         log(f"card: {card_line()}")
         log("stopping after phase 9")
         return

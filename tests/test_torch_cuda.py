@@ -1,11 +1,17 @@
 """The port's CUDA kernels against their plain torch versions on the card,
 bit for bit, and a test-scale proof on the card against the same proof on
-the CPU.  Every test needs a CUDA device (marker ``cuda``) and skips
-without one.  The file imports neither JAX nor the JAX package, so it also
+the CPU; on a machine of two cards or more, both kernels on every card and
+fib-40 on two NCCL ranks, one card each.  Every test needs a CUDA device
+(marker ``cuda``) and skips without one (the multi-card tests below two
+cards).  The file imports neither JAX nor the JAX package, so it also
 runs on a machine that has none:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+
+import hashlib
+import json
+import os
 
 import numpy as np
 import pytest
@@ -14,6 +20,7 @@ import torch
 from cairo_m_tpu_torch import kernels
 from cairo_m_tpu_torch.compiler import compile_cairo
 from cairo_m_tpu_torch.hash import blake2s
+from cairo_m_tpu_torch.parallel.sharded import prove_sharded
 from cairo_m_tpu_torch.prover import config
 from cairo_m_tpu_torch.prover.adapter.native_import import native_prover_input
 from cairo_m_tpu_torch.prover.components.registry import ComponentSet
@@ -32,6 +39,15 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def cards(cuda_device):
+    """Every visible card, where there are two or more."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip(f"needs two CUDA cards or more, {count} visible")
+    return [torch.device("cuda", k) for k in range(count)]
 
 
 @pytest.fixture(scope="module")
@@ -233,3 +249,68 @@ def test_cuda_proof_equals_cpu_proof(fib40, framing):
     # every plan of the prover fits the shared-memory kernel
     assert kernels.launches["wtape_run_plan_global"] == 0
     assert proof_json(cuda_proof) == proof_json(prove_cairo_m(pi, cfg, device="cpu"))
+
+
+def test_kernels_match_plain_on_every_card(cards):
+    """Each kernel on tensors of card k, launched while the current card is
+    cuda:0: it runs on card k (on that card's current stream), leaves the
+    current card as it was, and agrees with the plain version bit for
+    bit."""
+    plan, consts = random_wide_plan(3)
+    rng = np.random.default_rng(5)
+    cols = rng.integers(0, 1 << 32, size=(16, 1 << 12), dtype=np.int64)
+    leaves = rng.integers(0, 1 << 32, size=(8, 1 << 10), dtype=np.int64)
+    rows = rng.integers(0, P, size=(len(plan.used_bank), 3000), dtype=np.int64)
+    packed = torch.zeros((8, 2 * leaves.shape[1] - 1), dtype=torch.int64)
+    packed[:, : leaves.shape[1]] = torch.from_numpy(leaves)
+    want = {
+        "blake2s_leaves": blake2s.hash_leaves(torch.from_numpy(cols)),
+        "blake2s_pyramid": blake2s.merkle_pyramid_plain(packed.clone()),
+        "wtape": wtape.run_plan(torch.from_numpy(rows), consts, plan),
+    }
+    torch.cuda.set_device(0)
+    for card in cards:
+        before = dict(kernels.launches)
+        got = {
+            "blake2s_leaves": blake2s.hash_leaves(torch.from_numpy(cols).to(card)),
+            "blake2s_pyramid": blake2s.merkle_pyramid(packed.to(card)),
+        }
+        rows_k = torch.from_numpy(rows).to(card)
+        for variant in ("smem", "global"):
+            got[variant] = wtape.run_plan(rows_k, consts, plan, variant=variant)
+        assert torch.cuda.current_device() == 0
+        assert {str(t.device) for t in got.values()} == {str(card)}
+        torch.cuda.synchronize(card)
+        for name, t in got.items():
+            assert torch.equal(t.cpu(), want.get(name, want["wtape"])), (card, name)
+        assert {k: kernels.launches[k] - before[k] for k in before} == {
+            "blake2s_leaves": 1,
+            "blake2s_pyramid": blake2s.pyramid_launches(leaves.shape[1]),
+            "wtape_run_plan": 1, "wtape_run_plan_global": 1}
+
+
+def test_fib40_on_two_nccl_ranks_matches_reference(cards):
+    """fib-40 at test scale row-sharded over two NCCL ranks, one card each:
+    every rank's proof is the reference's (tests/golden/fib40_proof_sha256.json)."""
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                          "fib40_proof_sha256.json")
+    with open(golden) as f:
+        want = json.load(f)["sha256"]
+    records = []
+    proof = prove_sharded(
+        FIB_SRC, "main", [40], world_size=2, backend="nccl",
+        devices=[str(c) for c in cards[:2]],
+        config=config.test_config(n_queries=8, pow_bits=2),
+        test_scale={"rc_big_bits": 10, "bitwise_log": 8}, records=records,
+        timeout=600)
+    digests = [hashlib.sha256(json.dumps(r["proof"], sort_keys=True).encode())
+               .hexdigest() for r in records]
+    assert digests == [want, want]
+    assert proof_json(proof) == json.dumps(records[0]["proof"], sort_keys=True)
+    assert [r["device"] for r in records] == ["cuda:0", "cuda:1"]
+    # the ranks exchanged over NCCL and launched the kernels on their cards
+    for r in records:
+        run = r["runs"][0]
+        assert run["exchange"]["exchanges"] > 0
+        assert all(run["launches"][k] > 0 for k in
+                   ("blake2s_leaves", "blake2s_pyramid", "wtape_run_plan"))

@@ -2,7 +2,7 @@
 scale (set_test_scale(10, 8), test_config(n_queries=8, pow_bits=2)).
 
 fibonacci(40) (330 cycles) is cut into segments of at most 100 steps by the
-native VM's resume path and proved by two worker processes:
+native VM's resume path and proved by two or four worker processes:
 
 - every segment's proof hashes to the reference's
   (tests/golden/fib40_segments_sha256.json) and the root chain holds;
@@ -51,13 +51,16 @@ def one_thread(monkeypatch):
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
 
 
-def test_two_workers_match_reference_digests(one_thread):
+@pytest.mark.parametrize("workers", [2, 4])
+def test_two_workers_match_reference_digests(one_thread, workers):
+    """Two workers take the four segments in turn; four take one each."""
     records = prove_segments_multiprocess(
-        FIB_SRC, "main", [40], SEGMENT_MAX_STEPS, devices=["cpu", "cpu"],
-        n_processes=2, test_scale=TEST_SCALE, test_config=TEST_CONFIG,
+        FIB_SRC, "main", [40], SEGMENT_MAX_STEPS, devices=["cpu"] * workers,
+        n_processes=workers, test_scale=TEST_SCALE, test_config=TEST_CONFIG,
     )
     assert [_digest(r["proof"]) for r in records] == _golden()
-    assert [r["worker"] for r in records] == [0, 1, 0, 1]
+    assert [r["worker"] for r in records] == [k % workers for k in range(4)]
+    assert {(r["device"], r["peak_bytes"]) for r in records} == {("cpu", None)}
     assert sum(r["n_steps"] for r in records) == 8 * 40 + 10
     for a, b in zip(records, records[1:]):
         assert a["final_root"] == b["initial_root"]

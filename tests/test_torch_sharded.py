@@ -18,7 +18,9 @@ test_config(n_queries=8, pow_bits=2)).  The ranks are gloo subprocesses on
 - `maybe_shard` is a no-op outside a mesh and on axes too small to split;
   a domain axis of the wrong length raises in the transforms, with a mesh
   or without; NCCL with two ranks on one card raises before any group
-  exists;
+  exists, and rank r of four NCCL ranks runs on cuda:r; an exchange
+  refuses a tensor off the mesh's device under either backend; a rank
+  makes its card current before it joins the group;
 - segment workers in one gloo group prove the reference's segment digests;
 - colpack classifies real witnesses as the reference does and rebuilds
   them exactly.
@@ -274,6 +276,82 @@ def test_backend_rules_raise_before_any_group():
     assert rank_devices(2, "nccl", ["cuda:0", "cuda:1"]) == [
         torch.device("cuda:0"), torch.device("cuda:1")]
     assert rank_devices(4, "gloo", ["cpu"]) == [torch.device("cpu")] * 4
+
+
+
+@pytest.mark.parametrize("backend, mesh_device, tensor_device", [
+    ("gloo", "cpu", "meta"),
+    ("nccl", "cuda:1", "cpu"),
+])
+def test_staged_refuses_a_tensor_off_the_mesh_device(backend, mesh_device,
+                                                     tensor_device):
+    """Every exchange goes through `_staged`, which refuses an input that is
+    not on the mesh's device under either backend, before any collective
+    runs and before the exchange is counted."""
+    mesh = RowMesh(None, 0, 2, torch.device(mesh_device), backend)
+    x = torch.zeros(8, dtype=torch.int32, device=tensor_device)
+
+    def collective(t):
+        raise AssertionError("the collective must not run")
+
+    with pytest.raises(ValueError, match=f"on {tensor_device}; the mesh's "
+                       f"device is {mesh_device}"):
+        sharded._staged(mesh, collective, x)
+    assert mesh.n_exchanges == 0
+    with prover_mesh(mesh), pytest.raises(ValueError, match="the mesh's device"):
+        sharded.all_gather(x)
+
+
+def test_rank_devices_one_card_a_rank(monkeypatch):
+    """With no devices named, rank r of an NCCL mesh runs on cuda:r of a
+    four-card machine; four NCCL ranks on two cards raise before any group
+    exists (gloo may share the cards)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert rank_devices(4, "nccl") == [torch.device(f"cuda:{r}") for r in range(4)]
+    assert rank_devices(2, "nccl") == [torch.device("cuda:0"), torch.device("cuda:1")]
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ValueError, match=r"4 ranks on cards \[0, 1, 0, 1\]"):
+        rank_devices(4, "nccl")
+    assert rank_devices(4, "gloo") == [torch.device(f"cuda:{r % 2}") for r in range(4)]
+
+
+@pytest.mark.parametrize("backend, device, want", [
+    ("nccl", None, "cuda:2"),
+    ("nccl", "cuda:3", "cuda:3"),
+    ("gloo", "cpu", "cpu"),
+])
+def test_make_row_mesh_makes_the_card_current_before_joining(
+        monkeypatch, backend, device, want):
+    """A rank's card is the current card before the process group exists,
+    and an NCCL group is bound to it as it is made (no rank makes a context
+    on card 0); a CPU rank touches no card."""
+    calls = []
+    joined = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: calls.append(("set_device", str(d))))
+    monkeypatch.setattr(sharded.dist, "is_initialized", lambda: bool(joined))
+
+    def init(backend, **kw):
+        calls.append(("init", backend, str(kw["device_id"])))
+        joined.append(True)
+
+    monkeypatch.setattr(sharded.dist, "init_process_group", init)
+    mesh = sharded.make_row_mesh(4, backend=backend, init_method="file:///unused",
+                                 device=device, rank=2)
+    assert (mesh.rank, mesh.world_size, mesh.backend) == (2, 4, backend)
+    assert mesh.device == torch.device(want)
+    card = [("set_device", want)] if want != "cpu" else []
+    bound = want if backend == "nccl" else "None"
+    assert calls == card + [("init", backend, bound)]
+
+
+def test_make_row_mesh_refuses_nccl_off_a_card(monkeypatch):
+    monkeypatch.setattr(sharded.dist, "is_initialized", lambda: False)
+    with pytest.raises(ValueError, match="'nccl' needs a CUDA device, got cpu"):
+        sharded.make_row_mesh(2, backend="nccl", init_method="file:///unused",
+                              device="cpu", rank=0)
 
 
 _BLOCKS_RANK = """
