@@ -6,7 +6,8 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py --kernels  # phases 1-3, the wide-tape kernel's
                                      # time on every plan at both block sizes
                                      # and the pyramid kernel's on every
-                                     # tree at both tile sizes
+                                     # tree at both tile sizes, and kernel
+                                     # A's SASS counted by pipe
     python3 chip_smoke.py --witnesses  # phases 1 and 5b: the way to
                                        # iterate on the AIR components
     python3 chip_smoke.py --sharded  # phases 1, 5 and 9: the way to iterate
@@ -18,11 +19,15 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py --sha256   # phases 1 and 11: the SHA-256 example
     python3 chip_smoke.py --bench    # phases 1 and 12: the bench 5 times,
                                      # the chain at full depth
+    python3 chip_smoke.py --wasm     # phases 1 and 14: WASM-compiled
+                                     # programs against the JAX package
 
 Phases (each raises on failure, so the script exits non-zero):
 
 1. require a CUDA device; print the card's name and power limit; build the
-   CUDA kernels from ``cairo_m_tpu_torch/csrc`` and time the build;
+   CUDA kernels from ``cairo_m_tpu_torch/csrc`` and time the build; read
+   the INT32 rate of the operation bounds off the card (SM count, maximum
+   SM clock);
 2. BLAKE2s leaf kernel vs its plain torch version on the card, bit for bit,
    at the Merkle shapes of the main path, plus a few lanes vs ``hashlib``;
    timed beside its bound at the shapes of PERF.md's kernel table.  BLAKE2s
@@ -76,7 +81,9 @@ Phases (each raises on failure, so the script exits non-zero):
 6. the stwo framing: (a) fib-40 at test scale on the card and on the CPU,
    byte-equal and matching ``tests/golden/fib40_stwo_proof_sha256.json``;
    (b) fib(10,000) at ``STWO_FRAMING_96_BITS`` (production tables) proved once
-   and verified on the card; the wide-tape kernel must have launched (the
+   on the card, its cycles and digest equal to the JAX package's
+   (``tests/golden/fib10k_stwo_production_sha256.json``) and its verdict
+   the reference's; the wide-tape kernel must have launched (the
    stwo trees are hashed on the host, so the BLAKE2s kernel is expected to
    launch 0 times);
 7. the command line, in subprocesses: compile fibonacci; prove
@@ -84,7 +91,7 @@ Phases (each raises on failure, so the script exits non-zero):
    ``REGULAR_96_BITS``, production tables) with ``--verify`` and ``verify``
    the file, and beside that chain prove a small run under ``--framing
    stwo`` and ``verify`` it, and run phase 11(d) and phase 12; every exit
-   code 0 and every segment verified;
+   code 0 and every segment verified; and beside them phase 14(c);
 8. chained segments through ``prove_segments_multiprocess`` with two
    workers on ``cuda:0``: (a) fib-40 cut at 100 steps at test scale, every
    segment's proof digest equal to ``tests/golden/fib40_segments_sha256.json``;
@@ -92,6 +99,9 @@ Phases (each raises on failure, so the script exits non-zero):
    2^20 - 1 into 5 segments at ``REGULAR_96_BITS`` (the 10,000,010-cycle
    chain runs under ``--bench``, phase 12): the root chain holds,
    every proof verifies, and all three kernels launch in every segment;
+   every segment's cycles and memory roots equal the JAX package's, and
+   segments 1, 2 and 5 (the first resumed one and the last) its proofs
+   (``tests/golden/fib600k_segments_production_sha256.json``);
 9. the row-sharded prover (``prove_sharded``, one process per rank): (a)
    fib-40 at test scale, two ranks on ``cuda:0`` under gloo, every rank's
    proof equal to ``tests/golden/fib40_proof_sha256.json``; (b) fib-100k at
@@ -177,7 +187,26 @@ Phases (each raises on failure, so the script exits non-zero):
    intact, each segment's card, seconds and peak printed, both walls.
    (d) and (e) run first, then (a), and (b) and (c) only once (a) passed;
    every part that can runs, and any failure makes the script exit
-   non-zero.  Its last line names the four cards' count.
+   non-zero.  Its last line names the four cards' count;
+14. programs of the WASM frontend (``cairo_m_tpu_torch/wasm``), the JAX
+   package's test modules committed as hex in their goldens: (a) both
+   modules (``memrw``, a linear-memory store and load; ``sumsq``, a
+   sum-of-squares loop over one full 64 KiB page) compiled; ``memrw`` at
+   test scale proved on the card, equal to
+   ``tests/golden/wasm_memrw_proof_sha256.json`` (the port's CPU proof is
+   held to it in ``tests/test_torch_wasm.py``); (b) both at
+   ``REGULAR_96_BITS``, cold and warm, every digest equal to
+   ``tests/golden/wasm_<name>_production_sha256.json`` and every verdict
+   the reference's; seconds, phases, peak device memory and launches
+   printed, all three kernels launched in each warm proof; kernel B on
+   every plan of their live components at their sizes (those earlier
+   phases did not check at the same size), bit for bit against plain and
+   timed beside it and its bound, every wide-tape launch shape of the warm
+   proofs checked, and the trees' kernels on every leaf shape and tree
+   size; (c) ``wasm``, ``prove --verify --device cuda`` and ``verify`` of
+   ``memrw`` through the command line, in subprocesses that cannot import
+   JAX, the file's segment equal to the production golden (the full run
+   runs (c) in phase 7).
 
 Launch counts are read per path: zeroed just before each path is driven
 and read just after (the segment, command-line and sharded paths count
@@ -223,6 +252,7 @@ from cairo_m_tpu_torch.parallel.segments import prove_segments_multiprocess  # n
 from cairo_m_tpu_torch.parallel.sharded import prove_sharded  # noqa: E402
 from cairo_m_tpu_torch.prover.prove import upload_rows  # noqa: E402
 from cairo_m_tpu_torch.prover.stark import colpack  # noqa: E402
+from cairo_m_tpu_torch.wasm import compile_wasm  # noqa: E402
 
 GOLDEN_DIR = os.path.join(REPO, "tests", "golden")
 DEV = torch.device("cuda:0")
@@ -233,6 +263,9 @@ WORKERS_ITERS = 600_000  # phase 8(b): 4,800,010 cycles, 5 segments
 STWO_ITERS = 10_000  # phase 6(b): 80,010 cycles under the stwo framing
 # the JAX package's proof of bench.py's input: fib-100k, REGULAR_96_BITS
 FIB100K_GOLDEN = "fib100k_production_sha256.json"
+# the JAX package's proof of phase 6(b)'s input and its chain of phase 8(b)'s
+STWO_GOLDEN = "fib10k_stwo_production_sha256.json"
+CHAIN_GOLDEN = "fib600k_segments_production_sha256.json"
 # phase 12: fibonacci(300,000) = 2,400,010 cycles, 3 segments at the cap
 SEG_SMOKE_ITERS = 300_000
 BENCH_RUNS = 5  # bench lines of --bench
@@ -289,27 +322,85 @@ def time_ms(fn, reps: int = 10, warm: bool = True, queued: bool = False,
     return start.elapsed_time(end) / reps
 
 
+def timed_call(fn, device=DEV):
+    """(``fn()``, the ms of that one call between two CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(device)
+    start.record(torch.cuda.current_stream(device))
+    out = fn()
+    end.record(torch.cuda.current_stream(device))
+    torch.cuda.synchronize(device)
+    return out, start.elapsed_time(end)
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.shape != b.shape:
         raise AssertionError(f"shape mismatch {tuple(a.shape)} vs {tuple(b.shape)}")
     return int((a - b).abs().max()) if a.numel() else 0
 
 
-# Peak rates of one H100 SXM for the bounds: device memory 3.35 TB/s; INT32
-# at half the FP32 lanes (64 of 128 per SM), i.e. a quarter of the 67 TFLOP/s
-# FP32 rate, which counts a fused multiply-add as two.
+# Peak rates of the card for the bounds: device memory 3.35 TB/s (one H100
+# SXM); INT32 operations at the rate `card_rates` reads off the card in phase
+# 1: 64 thread instructions a clock an SM (its INT32 pipe) at the SM clock's
+# maximum, 132 x 64 x 1,980 MHz = 16.73e12/s on an H100 SXM.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 4
-# integer operations of one BLAKE2s compression as the card can do them: 80 G
-# functions of 12 (a three-input add for a + b + m twice, two plain adds, four
-# xors, four rotations of one funnel shift each) and 20 for set-up and
-# feed-forward
-BLAKE2S_OPS = 80 * 12 + 20
+INT32_OPS_PER_S = None
+# integer operations of one BLAKE2s compression (csrc/blake2s_compress.cuh)
+# that only the INT32 pipe can do: the 80 G functions' 4 xors and 4
+# rotations (one funnel shift each) and the feed-forward's 8 three-input
+# xors; the set-up's operands are the same in every lane.  The G functions'
+# adds can all leave that pipe as IMADs on the FMA pipe, of the same rate:
+# 80 x 6 = 480 of them.  An SM issues twice that rate: (648 + 480) / 2.  So
+# the INT32 pipe's 648 bound a compression.
+BLAKE2S_INT32_ONLY = 80 * 8 + 8
+BLAKE2S_OPS = max(BLAKE2S_INT32_ONLY, 80 * 6, (BLAKE2S_INT32_ONLY + 80 * 6) / 2)
 # of one M31 instruction as csrc/wtape.cu does it: add = add, subtract,
 # minimum; sub = subtract, add, minimum; mul = low and high product, mask,
 # funnel shift and add for the first fold, mask, shift and add for the second,
 # subtract and minimum
 M31_OPS = (3, 3, 10)
+
+
+def card_rates():
+    """Phase 1: set the INT32 rate from the card's SM count and maximum SM
+    clock (``nvidia-smi --query-gpu=clocks.max.sm``); log it."""
+    global INT32_OPS_PER_S
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    INT32_OPS_PER_S = 64 * sms * mhz * 1e6
+    log(f"  INT32 rate {INT32_OPS_PER_S:.4e} op/s ({sms} SMs x 64 a clock x {mhz:.0f} "
+        f"MHz); BLAKE2s compression {BLAKE2S_OPS:g} INT32-pipe operations")
+
+
+# opcodes of the SASS by the pipe that issues them (compute capability 9.0)
+SASS_INT32 = frozenset({"IADD3", "LOP3", "SHF", "PRMT", "ISETP", "LEA", "SEL", "IMNMX",
+                        "IABS", "FLO", "POPC", "BREV", "PLOP3", "BMSK", "SGXT"})
+SASS_FMA = frozenset({"IMAD", "IMUL", "FFMA", "FMUL", "FADD"})
+
+
+def sass_counts():
+    """--kernels: the one-block leaf kernel's instructions (one compression,
+    no loop) by pipe in the built library's SASS (``cuobjdump -sass``),
+    beside the function's count that the bounds use: how many operations
+    the compiled code adds."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                             "cuobjdump")
+    listing = subprocess.run([cuobjdump, "-sass", kernels.library_path()],
+                             capture_output=True, text=True, check=True).stdout
+    body = listing.split("blake2s_leaves_kernelILb0", 1)[1].split("Function :", 1)[0]
+    instrs = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[0-9T]\s+)?([A-Z][A-Z0-9_]*)"
+                        r"[^;]*?(?:0x([0-9a-f]+))?\s*;", body)
+    # up to the branch-to-self that pads the kernel's end
+    end = next(i for i, (addr, op, to) in enumerate(instrs)
+               if op == "BRA" and to and int(to, 16) == int(addr, 16))
+    ops = [op for _, op, _ in instrs[:end]]
+    int32, fma = sum(op in SASS_INT32 for op in ops), sum(op in SASS_FMA for op in ops)
+    log(f"  kernel A's SASS, the one-block leaf kernel's lane: {int32} INT32-pipe, {fma} "
+        f"FMA-pipe, {len(ops)} instructions in all; the function needs "
+        f"{BLAKE2S_INT32_ONLY} INT32-pipe operations ({int32 / BLAKE2S_INT32_ONLY:.2f}x)")
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -319,10 +410,10 @@ def bound(n_bytes: float, n_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def blake2s_bound(k: int, n: int):
+def blake2s_bound(k: int, n: int, n_words: int = None):
     """Each lane reads K int64 words and writes 8, and runs one compression
-    per 16 message words."""
-    return bound((k + 8) * 8 * n, max(1, -(-k // 16)) * BLAKE2S_OPS * n)
+    per 16 words of its message, the K words zero-padded to ``n_words``."""
+    return bound((k + 8) * 8 * n, max(1, -(-(n_words or k) // 16)) * BLAKE2S_OPS * n)
 
 
 def pyramid_bound(m: int):
@@ -547,13 +638,39 @@ def _plan_line(name, plan, n):
             f"n=2^{n.bit_length() - 1} lanes={lanes}")
 
 
+def host_traces(pi, relations):
+    """The witness traces, the tables' multiplicities counted on the host
+    (the debug route: it raises on a lookup outside its table)."""
+    comps = ComponentSet(relations)
+    comps.write_traces(pi)
+    return comps
+
+
+def prover_traces(pi, relations):
+    """The witness traces as the prover writes them: the tables'
+    multiplicities counted on the card by `framework.TableCounter`, which
+    drops a lookup outside its table as the reference's prover does."""
+    comps = ComponentSet(relations)
+    counter = framework.TableCounter(relations, *config.SCALE.key(), DEV)
+
+    def count(comp):
+        if comp.trace_rows is not None and not comp.zero_witness:
+            counter.add(comp, upload_rows(comp.trace_rows, DEV))
+
+    comps.write_traces(pi, on_component=count, table_counter=counter)
+    return comps
+
+
 def witness_plans(pi):
     """Every distinct plan of the witness: (name, plan, n lanes, constants)
     for the interaction, table-count and composition plan of each live
     component, at the domain sizes the prover runs them."""
     relations = Relations()
-    comps = ComponentSet(relations)
-    comps.write_traces(pi)
+    return component_plans(relations, host_traces(pi, relations))
+
+
+def component_plans(relations, comps):
+    """`witness_plans` of components whose traces are written."""
     relations.draw(_FakeChannel())
     live = [c for c in comps.all if not c.zero_witness]
     n_apows = max(framework.count_constraints(c) for c in live)
@@ -716,9 +833,23 @@ def phase_wtape(pi, gen):
     return table, synthetic
 
 
-def _golden(name):
+def _golden_record(name):
     with open(os.path.join(GOLDEN_DIR, name)) as f:
-        return json.load(f)["sha256"]
+        return json.load(f)
+
+
+def _golden(name):
+    return _golden_record(name)["sha256"]
+
+
+def check_golden(label, cycles, digest, name):
+    """A proof's cycles and digest against the JAX package's golden ``name``."""
+    g = _golden_record(name)
+    same = (cycles, digest) == (g["cycles"], g["sha256"])
+    log(f"  {label}: {cycles} cycles, proof sha256 {digest} "
+        f"({'equal to' if same else 'DIFFERENT from'} the reference's, {name})")
+    if not same:
+        raise AssertionError(f"{label}: the proof differs from the reference's")
 
 
 def check_fib100k_digest(digest):
@@ -730,24 +861,28 @@ def check_fib100k_digest(digest):
         raise AssertionError("the fib-100k proof differs from the reference's")
 
 
-def phase_test_scale(program, framing, golden):
-    """fib-40 at test scale: CUDA proof == CPU proof == reference digest."""
+def phase_test_scale(label, make_input, framing, golden, devices=("cuda", "cpu")):
+    """At test scale, the input ``make_input()`` proved on each of
+    ``devices`` (the card first): the proofs byte-equal and equal to the
+    reference digest ``golden``.  -> (the input, the card's proof, its
+    config)."""
     config.set_test_scale(**TEST_SCALE)
     try:
         cfg = config.test_config(**TEST_CONFIG, framing=framing)
-        pi = native_prover_input(program, "main", [40])
-        js = {}
-        for dev in ("cuda", "cpu"):
+        pi = make_input()
+        proofs, js = {}, {}
+        for dev in devices:
             t = time.time()
-            proof = prove_cairo_m(pi, cfg, device=dev)
-            js[dev] = json.dumps(proof.to_json_obj(), sort_keys=True)
-            log(f"  fib-40 {framing} test scale on {dev}: {time.time() - t:.2f} s")
-        if js["cuda"] != js["cpu"]:
-            raise AssertionError(f"fib-40 {framing} proof differs between CUDA and CPU")
+            proofs[dev] = prove_cairo_m(pi, cfg, device=dev)
+            js[dev] = json.dumps(proofs[dev].to_json_obj(), sort_keys=True)
+            log(f"  {label} {framing} test scale on {dev}: {time.time() - t:.2f} s")
+        if len(set(js.values())) > 1:
+            raise AssertionError(f"{label} {framing} proof differs between CUDA and CPU")
         digest = hashlib.sha256(js["cuda"].encode()).hexdigest()
-        log(f"  fib-40 {framing} proof sha256 {digest} (reference {_golden(golden)})")
+        log(f"  {label} {framing} proof sha256 {digest} (reference {_golden(golden)})")
         if digest != _golden(golden):
-            raise AssertionError(f"fib-40 {framing} proof does not match the reference digest")
+            raise AssertionError(f"{label} {framing} proof does not match the reference digest")
+        return pi, proofs["cuda"], cfg
     finally:
         config.set_production_scale()
 
@@ -799,9 +934,7 @@ def witness_golden(name, w, framing="native"):
 
 
 def _live(pi):
-    comps = ComponentSet(Relations())
-    comps.write_traces(pi)
-    return [c.name for c in comps.all if not c.zero_witness]
+    return [c.name for c in host_traces(pi, Relations()).all if not c.zero_witness]
 
 
 def phase_witnesses_test_scale(witnesses):
@@ -975,11 +1108,13 @@ def prove_full(pi, cfg, label, runs=("cold", "warm"), rejected=False):
 
 
 def _cli(*argv, timeout=900, out=None):
-    """Run the port's command line; raise unless it exits with 0.  Its lines
-    go to ``out`` (a list) where given, else to the log."""
+    """Run the port's command line in a process that cannot import JAX nor
+    the JAX package; raise unless it exits with 0.  Its lines go to ``out``
+    (a list) where given, else to the log."""
     t = time.time()
     res = subprocess.run(
-        [sys.executable, "-m", "cairo_m_tpu_torch.cli", *argv],
+        [sys.executable, "-c", _NO_JAX_MODULE.format(
+            repo=REPO, module="cairo_m_tpu_torch.cli", argv=list(argv))],
         capture_output=True, text=True, cwd=REPO, timeout=timeout,
     )
     lines = [f"  cli {argv[0]} ({time.time() - t:.2f} s, rc {res.returncode}):"]
@@ -1035,10 +1170,10 @@ def _cli_chain(tmp, prog, framing, arg, max_steps, n_segments, check, lines):
 
 def phase_cli(tmp, witnesses):
     """prove / verify through the command line, in subprocesses: the native
-    and the stwo prove -> verify chains and phase 11(d)'s chain of the
-    SHA-256 example run side by side (each is mostly one process's cold
-    start, host-side stwo trees or host verification), each chain's lines
-    printed when it ends."""
+    and the stwo prove -> verify chains, phase 11(d)'s chain of the SHA-256
+    example and phase 14(c)'s of a WASM module run side by side (each is
+    mostly one process's cold start, host-side stwo trees or host
+    verification), each chain's lines printed when it ends."""
     src, prog = os.path.join(tmp, "fib.cm"), os.path.join(tmp, "fib.json")
     with open(src, "w") as f:
         f.write(FIB_SRC)
@@ -1047,15 +1182,17 @@ def phase_cli(tmp, witnesses):
     # verification costs tens of seconds on the card's machine
     chains = {"native": ("2000", "10000", 2, ["--verify"]),
               "stwo": ("100", "50000", 1, [])}
-    lines = {name: [] for name in (*chains, "sha256")}
-    sha_tmp = os.path.join(tmp, "sha256")
+    lines = {name: [] for name in (*chains, "sha256", "wasm")}
+    sha_tmp, wasm_tmp = os.path.join(tmp, "sha256"), os.path.join(tmp, "wasm")
     os.makedirs(sha_tmp)
+    os.makedirs(wasm_tmp)
     with ThreadPoolExecutor(len(lines)) as pool:
         futures = {framing: pool.submit(_cli_chain, tmp, prog, framing, *args,
                                         lines[framing])
                    for framing, args in chains.items()}
         futures["sha256"] = pool.submit(phase_sha256_cli, sha_tmp, witnesses,
                                         lines["sha256"])
+        futures["wasm"] = pool.submit(phase_wasm_cli, wasm_tmp, lines["wasm"])
         launches = {}
         for name, fut in futures.items():
             try:
@@ -1063,6 +1200,8 @@ def phase_cli(tmp, witnesses):
             finally:
                 if name == "sha256":
                     log("  phase 11(d), the README's commands of the SHA-256 example:")
+                if name == "wasm":
+                    log("  phase 14(c), a WASM module through the command line:")
                 for line in lines[name]:
                     log(line)
     log(f"  cli prove launches: {launches}")
@@ -1128,9 +1267,36 @@ def run_chain(devices, n_processes):
     return records, wall
 
 
+def check_chain_golden(records):
+    """The chain's segments against the JAX package's: every segment's
+    cycles and memory roots, and the digests of the segments it proved."""
+    segments = _golden_record(CHAIN_GOLDEN)["segments"]
+    if len(records) != len(segments):
+        raise AssertionError(f"{len(records)} chain segments, the reference's "
+                             f"{len(segments)}")
+    for want in segments:
+        r = records[want["segment"]]
+        got = (r["n_steps"], r["initial_root"], r["final_root"])
+        same = got == (want["n_steps"], want["initial_root"], want["final_root"])
+        line = (f"  segment {r['segment']}: {r['n_steps']} cycles, roots "
+                f"{r['initial_root']} -> {r['final_root']} "
+                f"({'equal to' if same else 'DIFFERENT from'} the reference's)")
+        if "sha256" in want:
+            digest = _digest(r["proof"])
+            same = same and digest == want["sha256"]
+            line += (f"; proof sha256 {digest} "
+                     f"({'equal to' if digest == want['sha256'] else 'DIFFERENT from'} "
+                     "the reference's)")
+        log(line)
+        if not same:
+            raise AssertionError(f"chain segment {r['segment']} differs from the reference's")
+
+
 def phase_segments_full():
-    """8(b): the chain on two workers on the card; -> its launches."""
+    """8(b): the chain on two workers on the card, held to the reference;
+    -> its launches."""
     records, _ = run_chain([str(DEV)], 2)
+    check_chain_golden(records)
     launches = dict.fromkeys(kernels.launches, 0)
     for r in records:
         for k, n in r["launches"].items():
@@ -1362,34 +1528,45 @@ def phase_fib1m_prove(tmp):
     return entry, _parse_shapes(warm["launch_shapes"])
 
 
+# the leaf shapes and tree sizes `check_tree_shapes` has checked in this run
+TREES_CHECKED = set()
+
+
 def check_tree_shapes(gen, shapes, label, min_lanes=0):
     """The leaf kernel on every leaf launch shape in ``shapes`` of more than
     ``min_lanes`` lanes (timed beside plain and its bound) and the pyramid
-    kernel on every tree size, each against plain; the pyramid's launches
-    per tree.  -> leaves -> trees of that size in ``shapes``."""
+    kernel on every tree size, each against plain, once a run (a shape an
+    earlier path checked is skipped); the pyramid's launches per tree.
+    -> leaves -> trees of that size in ``shapes``."""
+    checked = TREES_CHECKED
     trees = {}
     for key, count in sorted(shapes.items()):
         if key[0] != "blake2s_leaves":
             continue
         k, n_words, n = key[1:]
         trees[n] = trees.get(n, 0) + count
-        if n <= min_lanes:
+        if n <= min_lanes or key in checked:
             continue
+        checked.add(key)
         cols = _rand((k, n), (1 << 31) - 1, gen)
-        e = max_abs_err(blake2s.hash_leaves(cols, n_words),
-                        torch.stack(blake2s.hash_words(list(cols), n_words)))
+        # the plain version takes up to seconds: its one call is the timed one
+        want, plain_ms = timed_call(lambda: torch.stack(blake2s.hash_words(list(cols),
+                                                                           n_words)))
+        e = max_abs_err(blake2s.hash_leaves(cols, n_words), want)
         if e:
             raise AssertionError(f"blake2s kernel disagrees with plain at {key}: {e}")
         ms = time_ms(lambda: blake2s.hash_leaves(cols, n_words))
         dev_ms = time_ms(lambda: blake2s.hash_leaves(cols, n_words), queued=True)
-        plain_ms = time_ms(lambda: blake2s.hash_words(list(cols), n_words), reps=1)
-        b_ms, b_by = blake2s_bound(n_words, n)
+        b_ms, b_by = blake2s_bound(k, n, n_words)
         log(f"    blake2s K={k} (words {n_words}) n=2^{n.bit_length() - 1}: "
             f"max_abs_err={e}, kernel {ms:.4f} ms ({dev_ms:.4f} ms queued), plain "
             f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), kernel/bound "
             f"{ms / b_ms:.2f}, launches per warm {label} proof {count}")
-        del cols
+        del cols, want
     for m in sorted(trees):
+        if ("blake2s_pyramid", m) in checked:
+            continue
+        checked.add(("blake2s_pyramid", m))
         packed = torch.zeros((8, 2 * m - 1), dtype=torch.int64, device=DEV)
         packed[:, :m] = _rand((8, m), 1 << 32, gen)
         e = max_abs_err(blake2s.merkle_pyramid(packed.clone()),
@@ -1605,8 +1782,8 @@ def phase_sha256_cli(tmp, witnesses, lines=None):
 
 def phase_sha256(gen, known=None, cli=True):
     """Phase 11; ``cli``: run (d) here (the full run runs it in phase 7,
-    beside the other command-line chains).  -> the launches of (b)'s
-    proofs."""
+    beside the other command-line chains).  -> (the launches of (b)'s
+    proofs, kernel B's rows of (c))."""
     witnesses = load_witnesses()
     with open(os.path.join(REPO, SHA256_FILE)) as f:
         program = compile_cairo(f.read(), SHA256_FILE).program
@@ -1615,14 +1792,176 @@ def phase_sha256(gen, known=None, cli=True):
     phase("  (b) proofs on the card")
     launches, shapes = phase_sha256_proofs(inputs, witnesses)
     phase("  (c) the kernels at bench1k's shapes")
-    phase_sha256_kernels(gen, inputs["bench1k"], shapes, known)
+    table = phase_sha256_kernels(gen, inputs["bench1k"], shapes, known)
     del inputs
     if not cli:
         log("  (d) the README's commands ran in phase 7")
-        return launches
+        return launches, table
     phase("  (d) the README's commands")
     with tempfile.TemporaryDirectory() as tmp:
         phase_sha256_cli(tmp, witnesses)
+    return launches, table
+
+
+# phase 14: the WASM frontend's programs, each held to the JAX package's
+# proof (the module's bytes, entry point and arguments are in its golden)
+WASM_TEST_GOLDEN = "wasm_memrw_proof_sha256.json"
+WASM_GOLDENS = ("wasm_memrw_production_sha256.json", "wasm_sumsq_production_sha256.json")
+
+
+def wasm_input(g):
+    """The port's prover input of a WASM golden: its WASM frontend, native
+    VM core and adapter, at the current protocol scale."""
+    program = compile_wasm(bytes.fromhex(g["module_hex"])).program
+    return native_prover_input(program, g["entrypoint"], g["args"])
+
+
+def check_verdict(proof, cfg, g, label, device=DEV):
+    """Verify; the outcome must be the golden ``g``'s: ``verifies``, or a
+    rejection with the message the reference's verifier gave
+    (``rejected_with``).  -> seconds."""
+    t = time.time()
+    try:
+        ok, reason = verify_cairo_m(proof, cfg, device=device), None
+    except VerificationError as e:
+        ok, reason = False, str(e)
+    secs = time.time() - t
+    log(f"  {label}: verified {ok} in {secs:.3f} s"
+        + (f", rejected: {reason}" if reason else "")
+        + f" (the reference's verifier: {g['verifies']}"
+        + (f", rejected: {g['rejected_with']})" if not g["verifies"] else ")"))
+    if ok != g["verifies"] or reason != g.get("rejected_with"):
+        raise AssertionError(f"{label}: the port's verdict is not the reference's")
+    return secs
+
+
+def phase_wasm_test_scale():
+    """(a) Both modules compiled by the port's WASM frontend; memrw at test
+    scale proved on the card: equal to the golden (which the port's CPU
+    proof equals in tests/test_torch_wasm.py), the verdict the
+    reference's."""
+    for name in (WASM_TEST_GOLDEN, *WASM_GOLDENS):
+        g = _golden_record(name)
+        program = compile_wasm(bytes.fromhex(g["module_hex"])).program
+        log(f"  {name}: {len(bytes.fromhex(g['module_hex']))} module bytes -> "
+            f"{len(program.qm31_words())} program words, entry points "
+            f"{list(program.entrypoints)}")
+    g = _golden_record(WASM_TEST_GOLDEN)
+    pi, proof, cfg = phase_test_scale("memrw", lambda: wasm_input(g), "native",
+                                      WASM_TEST_GOLDEN, devices=("cuda",))
+    if pi.total_steps != g["cycles"]:
+        raise AssertionError(f"memrw ran {pi.total_steps} cycles, the reference {g['cycles']}")
+    config.set_test_scale(**TEST_SCALE)
+    try:
+        check_verdict(proof, cfg, g, "memrw test scale")
+    finally:
+        config.set_production_scale()
+
+
+def phase_wasm_proofs(gen, known=None):
+    """(b) memrw and sumsq at REGULAR_96_BITS, cold (the prover's caches set
+    aside) and warm, each digest equal to its golden and the verdict the
+    reference's; then kernel B on every plan of their live components at
+    their sizes but those of a launch shape in ``known``, bit for bit
+    against plain (timed beside it and its bound), every wide-tape launch
+    shape of the warm proofs checked, and the trees' kernels on every leaf
+    shape and tree size.  -> the launches of the proofs."""
+    known = dict(known or {})
+    cfg = config.REGULAR_96_BITS
+    launches = dict.fromkeys(kernels.launches, 0)
+    torch.cuda.empty_cache()  # sumsq's proof peaks at ~30 GiB
+    for name in WASM_GOLDENS:
+        g = _golden_record(name)
+        label = g["entrypoint"]
+        t = time.time()
+        pi = wasm_input(g)
+        log(f"  {label}: WASM frontend, native VM + adapter {time.time() - t:.3f} s, "
+            f"{pi.total_steps} cycles")
+        # sumsq's lookups outside their tables (the fault of both packages
+        # that its golden records) stop the host's debug count
+        relations = Relations()
+        comps = prover_traces(pi, relations)
+        log(f"  {label} live components "
+            f"{[c.name for c in comps.all if not c.zero_witness]}")
+        jobs = [j for j in component_plans(relations, comps)
+                if wtape._launch_shape(j[1], j[2]) not in known]
+        del comps
+        for run in ("cold", "warm"):
+            with contextlib.ExitStack() as stack:
+                if run == "cold":
+                    stack.enter_context(profile.cold_prover_caches())
+                proof, rec = profile.timed_prove(pi, cfg, DEV)
+            log(f"  {label} {run} prove: {rec['seconds']:.3f} s, "
+                f"{rec['cycles_per_s']:.1f} cycles/s; phases "
+                + json.dumps({k: round(v, 4) for k, v in rec["phases"].items()})
+                + f"; peak device memory {rec['peak_device_bytes'] / 2**30:.2f} GiB "
+                f"({rec['peak_device_bytes']} bytes); launches {rec['launches']}")
+            check_golden(f"{label} {run}", pi.total_steps, _digest(proof.to_json_obj()), name)
+            for k, n in rec["launches"].items():
+                launches[k] += n
+        _require_launched(rec["launches"], f"the warm {label} proof")
+        if rec["launches"]["wtape_run_plan_global"]:
+            raise AssertionError(f"a {label} plan took the global-scratch kernel")
+        log(f"  {label} log sizes {json.dumps(profile.log_sizes(proof))}")
+        check_verdict(proof, cfg, g, label)
+        shapes = _parse_shapes(rec["launch_shapes"])
+        log(f"  {len(jobs)} plans of {label} at sizes not checked before")
+        table = check_plans(jobs, gen, [j[0] for j in jobs], require_smem=True)
+        count_plan_launches(table, shapes, label, known)
+        known.update(table)
+        check_tree_shapes(gen, shapes, label)
+        del pi, proof
+    return launches
+
+
+def phase_wasm_cli(tmp, lines=None):
+    """(c) memrw through the command line, in subprocesses that cannot
+    import JAX: ``wasm``, ``prove --verify --device cuda`` (the file's
+    segment equal to the production golden) and ``verify``; its lines go
+    to ``lines`` (a list) where given, else to the log.  -> the prove's
+    launches."""
+    g = _golden_record(WASM_GOLDENS[0])
+    src, prog = os.path.join(tmp, "memrw.wasm"), os.path.join(tmp, "memrw.json")
+    out = os.path.join(tmp, "proof.json")
+    with open(src, "wb") as f:
+        f.write(bytes.fromhex(g["module_hex"]))
+    _cli("wasm", src, "-o", prog, out=lines)
+    # the arguments as the command line takes them: one value a u32
+    args = [str(lo | hi << 16) for lo, hi in zip(g["args"][::2], g["args"][1::2])]
+    res = _cli("prove", prog, "--entrypoint", g["entrypoint"], "--arguments", *args,
+               "--verify", "--device", "cuda", "-o", out, out=lines)
+    launches = _cli_launches(res)
+    if "segment 0: verified=True" not in res.stdout.splitlines():
+        raise AssertionError("cli prove memrw: the proof did not verify")
+    with open(out) as f:
+        (segment,) = json.load(f)["segments"]
+    digest = _digest(segment)
+    _say(f"  cli proof file: segment sha256 {digest} "
+         f"({'equal to' if digest == g['sha256'] else 'DIFFERENT from'} the reference's); "
+         f"prove launches {launches}", lines)
+    if digest != g["sha256"]:
+        raise AssertionError("the cli's proof of memrw differs from the golden")
+    res = _cli("verify", out, "--device", "cuda", out=lines)
+    if res.stdout.strip().splitlines() != ["segment 0: OK", "proof verified"]:
+        raise AssertionError(f"cli verify: {res.stdout!r}")
+    _require_launched(launches, "the cli's memrw proof")
+    return launches
+
+
+def phase_wasm(gen, known=None, cli=True):
+    """Phase 14; ``cli``: run (c) here (the full run runs it in phase 7,
+    beside the other command-line chains).  -> the launches of (b)'s
+    proofs."""
+    phase("  (a) both modules compiled; memrw at test scale")
+    phase_wasm_test_scale()
+    phase("  (b) memrw and sumsq at REGULAR_96_BITS")
+    launches = phase_wasm_proofs(gen, known)
+    if not cli:
+        log("  (c) the command line's chain ran in phase 7")
+        return launches
+    phase("  (c) the command line's chain")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_wasm_cli(tmp)
     return launches
 
 
@@ -1864,6 +2203,7 @@ def main():
     kernels.build(verbose=True)
     kernels.lib()
     log(f"phase 1: kernels built in {time.time() - t:.2f} s")
+    card_rates()
     nccl_only = "--nccl" in sys.argv[1:]
     if nccl_only and torch.cuda.device_count() < NCCL_CARDS:
         raise RuntimeError(f"--nccl needs {NCCL_CARDS} cards, one a rank; "
@@ -1883,6 +2223,14 @@ def main():
         phase_sha256(gen)
         log(f"card: {card_line()}")
         log("stopping after phase 11")
+        return
+    if "--wasm" in sys.argv[1:]:
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(2024)
+        phase("phase 14: WASM-compiled programs")
+        phase_wasm(gen)
+        log(f"card: {card_line()}")
+        log("stopping after phase 14")
         return
     if "--bench" in sys.argv[1:]:
         phase("phase 12: the repository's prover benches on the port")
@@ -1947,11 +2295,13 @@ def main():
     phase("phase 3: wide-tape kernels vs plain, every plan of the fib-100k witness")
     table_b, synthetic = phase_wtape(pi, gen)
     if "--kernels" in sys.argv[1:]:
+        sass_counts()
         log("--kernels: stopping after the kernel phases")
         return
 
     phase("phase 4: test-scale proof, CUDA vs CPU vs reference digest")
-    phase_test_scale(program, "native", "fib40_proof_sha256.json")
+    phase_test_scale("fib-40", lambda: native_prover_input(program, "main", [40]),
+                     "native", "fib40_proof_sha256.json")
 
     phase("phase 5: fib-100k at REGULAR_96_BITS, production scale")
     torch.cuda.reset_peak_memory_stats()
@@ -2022,16 +2372,21 @@ def main():
         f"{sum(r['launches'] * r['global_ms'] for r in table_b.values()):.4f} ms)")
 
     phase("phase 5b: every AIR component, the witnesses of tests/golden/witnesses.json")
-    paths["allops"], _ = phase_witnesses(gen, load_witnesses())
+    paths["allops"], table_w = phase_witnesses(gen, load_witnesses())
 
     phase("phase 6: stwo framing")
-    phase_test_scale(program, "stwo", "fib40_stwo_proof_sha256.json")
+    phase_test_scale("fib-40", lambda: native_prover_input(program, "main", [40]),
+                     "stwo", "fib40_stwo_proof_sha256.json")
     # 80,010 cycles: a tenth of fib-100k's depth (its host trees and
     # host verification are most of the phase)
     pi_stwo = native_prover_input(program, "main", [STWO_ITERS])
-    paths["stwo"], _, _ = prove_full(pi_stwo, config.STWO_FRAMING_96_BITS,
-                                     f"fib({STWO_ITERS}) stwo", runs=("first",))
-    del pi_stwo
+    stwo = _golden_record(STWO_GOLDEN)
+    paths["stwo"], _, proof = prove_full(pi_stwo, config.STWO_FRAMING_96_BITS,
+                                         f"fib({STWO_ITERS}) stwo", runs=("first",),
+                                         rejected=not stwo["verifies"])
+    check_golden(f"fib({STWO_ITERS}) stwo", pi_stwo.total_steps, _digest(proof.to_json_obj()),
+                 STWO_GOLDEN)
+    del pi_stwo, proof
     if paths["stwo"]["wtape_run_plan"] <= 0:
         raise AssertionError("kernel wtape_run_plan never launched on the stwo path")
 
@@ -2062,7 +2417,12 @@ def main():
     paths["fib1m"] = phase_fib1m(gen, program, table_p, table_b)
 
     phase("phase 11: the SHA-256 example")
-    paths["sha256"] = phase_sha256(gen, table_b, cli=False)
+    paths["sha256"], table_s = phase_sha256(gen, table_b, cli=False)
+
+    phase("phase 14: WASM-compiled programs")
+    # a plan an earlier phase held to plain at the same launch shape is not
+    # checked again
+    paths["wasm"] = phase_wasm(gen, {**table_w, **table_s, **table_b}, cli=False)
 
     def entry(name, source, replaces, row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -224,3 +224,61 @@ def test_kernel_library_is_named_by_sources_and_headers(tmp_path, monkeypatch):
     assert kernels.library_path() == before
     (tmp_path / "shared.cuh").write_text("// changed")
     assert kernels.library_path() != before
+
+
+class _Counted(np.ndarray):
+    """Lanes that count, in ``counts``, the ufuncs applied to them."""
+
+    counts = None
+
+    def __array_ufunc__(self, ufunc, method, *inputs, **kwargs):
+        _Counted.counts[ufunc.__name__] += 1
+        inputs = [x.view(np.ndarray) if isinstance(x, _Counted) else x for x in inputs]
+        return getattr(ufunc, method)(*inputs, **kwargs).view(_Counted)
+
+
+def test_compression_operation_count_of_the_bound(monkeypatch):
+    """chip_smoke.py bounds kernel A by the operations of one BLAKE2s
+    compression that only the INT32 pipe can do: the G functions' xors and
+    rotations and the feed-forward's xors, three inputs at a time (the
+    set-up's xors take operands that are the same in every lane).  Counted here on
+    the host compression of one 16-word block, whose digest hashlib checks."""
+    import collections
+    import hashlib
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+
+    in_g = collections.Counter()
+    g_np = blake2s._g_np
+
+    def counted_g(*args):
+        before = collections.Counter(_Counted.counts)
+        g_np(*args)
+        in_g.update(_Counted.counts - before)
+
+    monkeypatch.setattr(blake2s, "_g_np", counted_g)
+    monkeypatch.setattr(_Counted, "counts", collections.Counter())
+    words = np.random.default_rng(7).integers(0, 1 << 32, size=(16, 4), dtype=np.uint32)
+    h = [np.full(4, iv ^ (blake2s._PARAM0 if i == 0 else 0), np.uint32).view(_Counted)
+         for i, iv in enumerate(blake2s.IV)]
+    _Counted.counts.clear()
+    with np.errstate(over="ignore"):
+        digest = blake2s._compress_np(h, [w.view(_Counted) for w in words], 64, True)
+    for lane in range(4):
+        assert (np.array([d[lane] for d in digest], "<u4").tobytes()
+                == hashlib.blake2s(words[:, lane].astype("<u4").tobytes()).digest())
+    outside = _Counted.counts - in_g
+    # 80 G functions: 6 adds, 4 xors, 4 rotations (a right and a left shift
+    # and an or here; one funnel shift on the card)
+    assert in_g == {"add": 480, "bitwise_xor": 320, "right_shift": 320,
+                    "left_shift": 320, "bitwise_or": 320}
+    # set-up: the byte counter's two words and the last-block flag
+    feed_forward = outside["bitwise_xor"] - 3
+    assert feed_forward == 16 and set(outside) == {"bitwise_xor"}
+    assert (chip_smoke.BLAKE2S_OPS == chip_smoke.BLAKE2S_INT32_ONLY
+            == in_g["bitwise_xor"] + in_g["right_shift"] + feed_forward // 2)

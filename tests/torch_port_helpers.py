@@ -418,10 +418,13 @@ def reference_witness_proof(name, framing="native"):
                              witness_config("cairo_m_tpu", name, framing))
 
 
-def cross_reject(proofs, cfgs):
-    """Each package's verifier rejects each package's proof at the OODS
-    check (the proofs of a component whose constraints exceed the
-    composition's degree: tests/test_torch_plans.py DEGREE_4)."""
+def cross_reject(proofs, cfgs, reason="composition polynomial mismatch at OODS"):
+    """Each package's verifier rejects each package's proof with a message
+    that holds ``reason``: by default at the OODS check (the proofs of a
+    component whose constraints exceed the composition's degree:
+    tests/test_torch_plans.py DEGREE_4)."""
+    import re
+
     from cairo_m_tpu.prover.prove import Proof as RProof
     from cairo_m_tpu.prover.verify import VerificationError as RError
     from cairo_m_tpu.prover.verify import verify_cairo_m as r_verify
@@ -431,10 +434,9 @@ def cross_reject(proofs, cfgs):
     rcfg, tcfg = cfgs
     for proof in proofs:
         obj = json.loads(proof_json(proof))
-        with pytest.raises(RError, match="composition polynomial mismatch at OODS"):
+        with pytest.raises(RError, match=re.escape(reason)):
             r_verify(RProof.from_json_obj(obj), rcfg)
-        with pytest.raises(VerificationError,
-                           match="composition polynomial mismatch at OODS"):
+        with pytest.raises(VerificationError, match=re.escape(reason)):
             verify_cairo_m(Proof.from_json_obj(obj), tcfg, device="cpu")
 
 
@@ -495,25 +497,32 @@ class WitnessFixtures:
                      for pkg in ("cairo_m_tpu", "cairo_m_tpu_torch"))
 
 
+def assert_traces_identical(ref_input, port_input):
+    """Every component's trace columns, bit for bit, and its size, each
+    package writing the traces of its own input (call at the inputs'
+    scale)."""
+    from cairo_m_tpu.prover.components.registry import ComponentSet as RComponentSet
+    from cairo_m_tpu.prover.relations import Relations as RRelations
+    from cairo_m_tpu_torch.prover.components.registry import ComponentSet
+    from cairo_m_tpu_torch.prover.relations import Relations
+
+    rcomps, tcomps = RComponentSet(RRelations()), ComponentSet(Relations())
+    rcomps.write_traces(ref_input)
+    tcomps.write_traces(port_input)
+    for r, t in zip(rcomps.all, tcomps.all, strict=True):
+        assert (t.name, t.log_size, t.zero_witness) == (r.name, r.log_size, r.zero_witness)
+        assert len(t.trace_rows) == len(r.trace_rows), t.name
+        for k, (x, y) in enumerate(zip(r.trace_rows, t.trace_rows)):
+            np.testing.assert_array_equal(np.asarray(y), np.asarray(x),
+                                          err_msg=f"{t.name} column {k}")
+
+
 class WitnessInputChecks(WitnessFixtures):
     """The witness's prover input, constraint level (no commitment)."""
 
     def test_traces_identical(self, ref_input, port_input):
         """Every component's trace columns, bit for bit, and its size."""
-        from cairo_m_tpu.prover.components.registry import ComponentSet as RComponentSet
-        from cairo_m_tpu.prover.relations import Relations as RRelations
-        from cairo_m_tpu_torch.prover.components.registry import ComponentSet
-        from cairo_m_tpu_torch.prover.relations import Relations
-
-        rcomps, tcomps = RComponentSet(RRelations()), ComponentSet(Relations())
-        rcomps.write_traces(ref_input)
-        tcomps.write_traces(port_input)
-        for r, t in zip(rcomps.all, tcomps.all, strict=True):
-            assert (t.name, t.log_size, t.zero_witness) == (r.name, r.log_size, r.zero_witness)
-            assert len(t.trace_rows) == len(r.trace_rows), t.name
-            for k, (x, y) in enumerate(zip(r.trace_rows, t.trace_rows)):
-                np.testing.assert_array_equal(np.asarray(y), np.asarray(x),
-                                              err_msg=f"{t.name} column {k}")
+        assert_traces_identical(ref_input, port_input)
 
     def test_live_components(self, port_input):
         """The witness keeps busy exactly the components that
@@ -571,3 +580,139 @@ class WitnessProofChecks(WitnessFixtures):
 
 class WitnessChecks(WitnessInputChecks, WitnessProofChecks):
     pass
+
+
+# ---------------------------------------------------------------------------
+# The user paths held to the JAX package at production scale: a WASM-compiled
+# program, the stwo framing and the continuation chain's resumed segments.
+# Each golden file records its input as plain data (a WASM module as hex) and
+# the command that regenerates it: reference_golden_record(name).
+# ---------------------------------------------------------------------------
+
+# fibonacci(10,000) = 80,010 cycles under STWO_FRAMING_96_BITS
+STWO_FIB_ITERS = 10_000
+# fibonacci(600,000) = 4,800,010 cycles cut at the production cap into five
+# segments; the reference proves the first, the second and the last (indices
+# as in the segment workers' records)
+CHAIN_FIB_ITERS = 600_000
+CHAIN_CAP = (1 << 20) - 1
+CHAIN_PROVED = (0, 1, 4)
+
+WASM_GOLDENS = ("wasm_memrw_proof", "wasm_memrw_production", "wasm_sumsq_production")
+
+
+def load_golden(name) -> dict:
+    """tests/golden/<name>_sha256.json"""
+    with open(os.path.join(GOLDEN_DIR, f"{name}_sha256.json")) as f:
+        return json.load(f)
+
+
+def wasm_program(package: str, name: str):
+    """The Program ``package``'s own WASM frontend compiles from the module
+    bytes the golden ``name`` records."""
+    compile_wasm = importlib.import_module(f"{package}.wasm").compile_wasm
+    return compile_wasm(bytes.fromhex(load_golden(name)["module_hex"])).program
+
+
+def wasm_scale(name):
+    """Context: both packages at the WASM golden's protocol scale."""
+    return both_at_scale(SCALES[load_golden(name)["scale"]])
+
+
+def wasm_config(package: str, name: str):
+    """test_config(8, 2) at test scale; REGULAR_96_BITS at production."""
+    cfg = importlib.import_module(f"{package}.prover.config")
+    if load_golden(name)["scale"] == "production":
+        return cfg.REGULAR_96_BITS
+    return cfg.test_config(n_queries=8, pow_bits=2)
+
+
+def wasm_input(package: str, name: str):
+    """``package``'s ProverInput of the WASM golden: its compiler, native VM
+    and adapter, the arguments in the call-slot encoding (call at the
+    golden's scale)."""
+    g = load_golden(name)
+    nimp = importlib.import_module(f"{package}.prover.adapter.native_import")
+    return nimp.native_prover_input(wasm_program(package, name), g["entrypoint"], g["args"])
+
+
+def bench_fib_program(package: str):
+    """bench.py's fibonacci source compiled by ``package``."""
+    from cairo_m_tpu_torch.bench import FIB_SRC as BENCH_FIB_SRC
+
+    return importlib.import_module(f"{package}.compiler").compile_cairo(BENCH_FIB_SRC).program
+
+
+def chain_inputs(package: str):
+    """Generator of ``package``'s ProverInputs of the five segments of
+    fibonacci(CHAIN_FIB_ITERS) cut at CHAIN_CAP."""
+    nimp = importlib.import_module(f"{package}.prover.adapter.native_import")
+    return nimp.native_segment_prover_inputs(
+        bench_fib_program(package), "main", [CHAIN_FIB_ITERS], CHAIN_CAP)
+
+
+def _reference_verdict(proof, cfg):
+    """(accepted, seconds, reason) of the JAX package's verifier."""
+    import time
+
+    from cairo_m_tpu.prover.verify import VerificationError, verify_cairo_m
+
+    t = time.time()
+    try:
+        ok, reason = bool(verify_cairo_m(proof, cfg)), None
+    except VerificationError as e:
+        ok, reason = False, str(e)
+    return ok, round(time.time() - t, 2), reason
+
+
+def _host_peak_gib():
+    import resource
+
+    return round(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20, 2)
+
+
+def reference_golden_record(name) -> dict:
+    """Prove the golden ``name``'s input with the JAX package on the CPU and
+    verify it with the JAX package: -> the digest(s), cycles, seconds, the
+    verifier's verdict and the process's host peak, what the golden file
+    records (``wasm_*``, ``fib10k_stwo_production``,
+    ``fib600k_segments_production``)."""
+    import time
+
+    from cairo_m_tpu.prover import config as rcfg
+    from cairo_m_tpu.prover.prove import prove_cairo_m
+
+    def one(pi, cfg):
+        t = time.time()
+        proof = prove_cairo_m(pi, cfg)
+        prove_s = round(time.time() - t, 2)
+        ok, verify_s, reason = _reference_verdict(proof, cfg)
+        rec = {"sha256": proof_sha256(proof), "cycles": pi.total_steps,
+               "prove_s": prove_s, "verifies": ok, "verify_s": verify_s}
+        if reason:
+            rec["rejected_with"] = reason
+        return rec
+
+    if name in WASM_GOLDENS:
+        with wasm_scale(name):
+            rec = one(wasm_input("cairo_m_tpu", name), wasm_config("cairo_m_tpu", name))
+    elif name == "fib10k_stwo_production":
+        from cairo_m_tpu.prover.adapter.native_import import native_prover_input
+
+        pi = native_prover_input(bench_fib_program("cairo_m_tpu"), "main", [STWO_FIB_ITERS])
+        rec = one(pi, rcfg.STWO_FRAMING_96_BITS)
+    elif name == "fib600k_segments_production":
+        segments = []
+        for k, pi in enumerate(chain_inputs("cairo_m_tpu")):
+            seg = {"segment": k, "n_steps": pi.total_steps,
+                   "initial_root": pi.merkle_trees.initial_root,
+                   "final_root": pi.merkle_trees.final_root}
+            if k in CHAIN_PROVED:
+                seg.update(one(pi, rcfg.REGULAR_96_BITS))
+                seg.pop("cycles")
+            segments.append(seg)
+        rec = {"segments": segments}
+    else:
+        raise KeyError(name)
+    rec["host_peak_gib"] = _host_peak_gib()
+    return rec
