@@ -25,6 +25,8 @@ import subprocess
 import tempfile
 import threading
 
+from .prover import observe
+
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -123,7 +125,8 @@ def lib():
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(build())
+            with observe.span("kernels_build"):
+                handle = ctypes.CDLL(build())
             vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
             handle.cm_blake2s_leaves.argtypes = [vp, vp, i64, i64, i32, i32, vp]
             handle.cm_blake2s_leaves.restype = ctypes.c_int

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 
 from ... import native
+from .. import observe
 from ...isa.instruction import SPECS_BY_OPCODE
 from ...isa.program import PublicAddressRanges
 from .adapter import MerkleTreesData, OpcodeBundles, ProverInput, rc_limit
@@ -154,18 +155,20 @@ def native_prover_input(program, entrypoint: str, args, max_steps=1 << 32):
     assert len(args) == M, "native path takes call-slot-encoded scalar args"
     words = np.array(program.qm31_words(), dtype=np.uint32)
     fp_offset = M + K + 2
-    raw = native.run_raw(
-        words, info.pc, fp_offset, np.array(args, np.uint32), K, max_steps,
-        rc_limit(), copy=False,
-    )
+    with observe.span("vm"):
+        raw = native.run_raw(
+            words, info.pc, fp_offset, np.array(args, np.uint32), K, max_steps,
+            rc_limit(), copy=False,
+        )
     n_words = len(words)
     new_fp = n_words + fp_offset
     if raw["final_pc"] != n_words:
         raise RuntimeError("native run did not reach final pc (segment cap?)")
-    snapshot = _entry_snapshot(words, new_fp, args, M, K)
-    ranges = PublicAddressRanges.new(n_words, M, K)
-    pi = _assemble(raw, snapshot, ranges, (info.pc, new_fp))
-    raw["free"]()  # all views consumed above; return buffers to native pool
+    with observe.span("adapter"):
+        snapshot = _entry_snapshot(words, new_fp, args, M, K)
+        ranges = PublicAddressRanges.new(n_words, M, K)
+        pi = _assemble(raw, snapshot, ranges, (info.pc, new_fp))
+        raw["free"]()  # all views consumed above; return buffers to native pool
     return pi
 
 

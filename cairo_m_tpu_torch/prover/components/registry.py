@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import observe
 from ..relations import Relations
 from ..stark import framework
 from .generic import (
@@ -114,17 +115,20 @@ class ComponentSet:
             self.memory, self.merkle, self.clock_update, self.poseidon2,
         ] + self.opcodes
         for comp in non_table:
-            comp.write_trace(prover_input)
+            with observe.span("witness", component=comp.name):
+                comp.write_trace(prover_input)
             if on_component is not None:
                 on_component(comp)
         if table_counter is not None:
-            cols, touched = table_counter.finalize()
+            with observe.span("witness", component="tables"):
+                cols, touched = table_counter.finalize()
             tables = (
                 self.range_check_8, self.range_check_16,
                 self.range_check_20, self.bitwise,
             )
             for comp, col, t in zip(tables, cols, touched):
-                comp.write_trace_device(col, t)
+                with observe.span("witness", component=comp.name):
+                    comp.write_trace_device(col, t)
                 if on_component is not None:
                     on_component(comp)
             return

@@ -19,7 +19,6 @@ order (§2.6 of SURVEY.md, adapted to this framework's PCS):
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -98,7 +97,7 @@ def upload_rows(rows, device) -> torch.Tensor:
     """List of (n,) uint32 NumPy rows (values < 2^31) -> (k, n) int64 stack
     on ``device``: uploaded as int32 (same bits), widened on the device."""
     st = np.ascontiguousarray(np.stack(rows).astype(np.uint32)).view(np.int32)
-    return torch.from_numpy(st).to(device).long()
+    return observe.push(st, device).long()
 
 
 def upload_fft_share(rows, device) -> torch.Tensor:
@@ -121,13 +120,14 @@ def preprocessed_phase(comps: ComponentSet, config, device):
     key = (str(device), SCALE.key(), blowup, config.framing, _mesh_key())
     cached = _PRE_PHASE_CACHE.get(key)
     if cached is None:
-        pre_cols, _ = comps.preprocessed_columns()
-        if active_mesh() is None:
-            cols = [(l, domain.to_fft_order(upload_rows([c], device)))
-                    for l, c in pre_cols]
-        else:
-            cols = [(l, upload_fft_share([c], device)) for l, c in pre_cols]
-        cached = pcs.CommitmentPhase(cols, blowup, framing=config.framing)
+        with observe.span("preprocessed"):
+            pre_cols, _ = comps.preprocessed_columns()
+            if active_mesh() is None:
+                cols = [(l, domain.to_fft_order(upload_rows([c], device)))
+                        for l, c in pre_cols]
+            else:
+                cols = [(l, upload_fft_share([c], device)) for l, c in pre_cols]
+            cached = pcs.CommitmentPhase(cols, blowup, framing=config.framing)
         _PRE_PHASE_CACHE.clear()  # hold at most one scale's tables
         _PRE_PHASE_CACHE[key] = cached
     return cached
@@ -174,110 +174,10 @@ def build_sample_points(comps: ComponentSet, z, z_prevs, pre_owners):
     return [pre_points, trace_points, inter_points, comp_points]
 
 
-def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
-                  device=DEFAULT_DEVICE, observer=None):
-    """Prove ``prover_input`` on ``device`` (a torch device or its name; the
-    card unless the caller names another, and an error without one).
-
-    Under ``prover_mesh`` (parallel/sharded.py) this rank proves on its
-    share of every stack, on the mesh's device; every rank returns the
-    same proof, byte-equal to the single-device proof.
-
-    ``observer``: an object with ``begin(stage, comp)`` and ``end(stage,
-    comp, out)``, called around each live component's interaction trace
-    (``out`` its stacked limb columns, row order) and composition
-    contribution (``out`` its weighted 4-limb evaluations): the per-
-    component profile (`cairo_m_tpu_torch.profile components`).  With
-    ``CM_DEBUG_PHASES`` set, one line a phase (`observe`)."""
-    device = resolve_device(device)
-    mesh = active_mesh()
-    if mesh is not None and device != mesh.device:
-        raise ValueError(f"device {device}, but this rank's mesh runs on "
-                         f"{mesh.device}")
-    # under a mesh every stack is held in FFT order (this rank's share):
-    # the row-order -> FFT-order steps below are the single device's
-    to_fft = domain.to_fft_order if mesh is None else (lambda st: st)
-    t0 = time.time()
-    debug = observe.phases_on()
-
-    def _dbg(msg):
-        if debug:
-            print(f"[prove +{time.time() - t0:7.2f}s] {msg}", flush=True)
-
-    channel = config.make_channel()
-    config.mix_into(channel)
-
-    public_data = PublicData.new(prover_input)
-    public_data.mix_into(channel)
-
-    relations = Relations()
-    comps = ComponentSet(relations)
-    _dbg("public data")
-    # each component's rows go to the device the moment they exist; table
-    # multiplicities are scatter-adds over those uploaded stacks
-    counter = framework.TableCounter(relations, *SCALE.key(), device)
-    uploaded = {}
-    upload_s = {"upload": 0.0, "count": 0.0}
-
-    def _upload(comp):
-        dev = getattr(comp, "device_stack", None)
-        if comp.trace_rows is None:
-            if dev is not None:
-                uploaded[id(comp)] = dev
-            return
-        if comp.zero_witness:
-            return
-        t = time.time()
-        if mesh is None:
-            st = upload_rows(comp.trace_rows, device)
-        else:
-            st = upload_fft_share(comp.trace_rows, device)
-        uploaded[id(comp)] = st
-        upload_s["upload"] += time.time() - t
-        t = time.time()
-        counter.add(comp, st)
-        upload_s["count"] += time.time() - t
-
-    comps.write_traces(
-        prover_input, on_component=_upload, table_counter=counter
-    )
-    _dbg(f"write_traces (host, uploads pipelined; upload "
-         f"{upload_s['upload']:.2f}s count {upload_s['count']:.2f}s)")
-
-    scheme = pcs.CommitmentSchemeProver(channel, config)
-
-    # phase 0: preprocessed (cached; only the root mixing runs per proof)
-    _, pre_owners = comps.preprocessed_columns()
-    scheme.commit_phase(preprocessed_phase(comps, config, device))
-    _dbg("phase0 commit")
-
-    # claim: mix log sizes; phase 1: trace
-    for comp in comps.all:
-        channel.mix_u64(comp.log_size)
-    trace_stacks = [
-        torch.zeros(
-            (comp.n_trace_cols, local_len(1 << comp.log_size)),
-            dtype=torch.int64, device=device,
-        )
-        if comp.zero_witness
-        else uploaded[id(comp)]
-        for comp in comps.all
-    ]
-    scheme.commit(
-        [
-            (comp.log_size, st if comp.zero_witness else to_fft(st))
-            for comp, st in zip(comps.all, trace_stacks)
-        ]
-    )
-    _dbg("phase1 trace commit")
-    t_trace = time.time()
-
-    # interaction PoW
-    nonce = channel.grind(INTERACTION_POW_BITS)
-    channel.mix_u64(nonce)
-
-    # relations + interaction traces (device tape path; columns stay stacked)
-    relations.draw(channel)
+def _interaction_traces(comps, trace_stacks, device, mesh, to_fft, observer):
+    """-> (claimed sum of each component, the interaction phase's
+    (log size, stacked limb columns) entries): one `dispatch` span a live
+    component, one pull of every sum."""
     claimed_dev = []
     inter_entries = []
     zero_claims = set()
@@ -299,26 +199,29 @@ def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
             if pre_stack is None:
                 if len(_PRE_STACK_CACHE) > 64:
                     _PRE_STACK_CACHE.clear()
-                if mesh is None:
-                    pre_stack = upload_rows(comp.preprocessed_columns(), device)
-                else:
-                    pre_stack = upload_fft_share(comp.preprocessed_columns(), device)
+                with observe.span("upload", component=comp.name):
+                    if mesh is None:
+                        pre_stack = upload_rows(comp.preprocessed_columns(), device)
+                    else:
+                        pre_stack = upload_fft_share(comp.preprocessed_columns(),
+                                                     device)
                 _PRE_STACK_CACHE[ps_key] = pre_stack
         else:
             pre_stack = torch.zeros((0, local_len(n)), dtype=torch.int64,
                                     device=device)
         if observer is not None:
             observer.begin("interaction", comp)
-        stacked, claimed = framework.gen_interaction_trace_device(
-            comp, st, pre_stack
-        )
+        with observe.span("dispatch", stage="interaction", component=comp.name):
+            stacked, claimed = framework.gen_interaction_trace_device(
+                comp, st, pre_stack
+            )
         if observer is not None:
             observer.end("interaction", comp, stacked)
         claimed_dev.append(claimed)
         inter_entries.append((comp.log_size, to_fft(stacked)))
     # one batched device->host pull for every non-zero component's sum
     claimed_np = (
-        torch.stack(claimed_dev).cpu().numpy()
+        observe.pull(torch.stack(claimed_dev))
         if claimed_dev
         else np.zeros((0, 4), np.int64)
     )
@@ -328,42 +231,150 @@ def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
         claimed_sums.append(
             (0, 0, 0, 0) if ci in zero_claims else tuple(int(x) for x in next(it))
         )
-    _dbg("interaction traces")
-    channel.mix_felts(claimed_sums)
-    scheme.commit(inter_entries)
-    _dbg("phase2 commit")
-    t_inter = time.time()
+    return claimed_sums, inter_entries
 
-    # composition
-    composition_coeff = channel.draw_felt()
-    pre_owner_map = {id(c): (s, n) for c, s, n in pre_owners}
-    comp_evals, comp_elog = framework.compute_composition(
-        comps.all, relations,
-        scheme.phases[0], scheme.phases[1], scheme.phases[2],
-        pre_owner_map, claimed_sums, composition_coeff,
-        blowup=config.fri_config.log_blowup_factor, observer=observer,
-    )
-    _dbg("composition computed")
-    # composition is a "trace" of log comp_elog committed with blowup
-    scheme.commit([(comp_elog, torch.stack(comp_evals))])
-    _dbg("phase3 commit")
-    t_comp = time.time()
 
-    # OODS
-    z, z_prevs = oods_point_and_prevs(channel, comps.log_sizes())
-    sample_points = build_sample_points(comps, z, z_prevs, pre_owners)
-    pcs_proof = scheme.prove_values(sample_points)
-    _dbg("pcs prove_values")
-    t_end = time.time()
+def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
+                  device=DEFAULT_DEVICE, observer=None):
+    """Prove ``prover_input`` on ``device`` (a torch device or its name; the
+    card unless the caller names another, and an error without one).
+
+    Under ``prover_mesh`` (parallel/sharded.py) this rank proves on its
+    share of every stack, on the mesh's device; every rank returns the
+    same proof, byte-equal to the single-device proof.
+
+    ``observer``: an object with ``begin(stage, comp)`` and ``end(stage,
+    comp, out)``, called around each live component's interaction trace
+    (``out`` its stacked limb columns, row order) and composition
+    contribution (``out`` its weighted 4-limb evaluations): the per-
+    component profile (`cairo_m_tpu_torch.profile components`).
+
+    ``timing``: a dict this fills with the seconds of the phases' spans
+    (``trace``, ``interaction``, ``composition``, ``pcs``, ``total``; under
+    the stwo framing ``host_trees``, its ``stwo_host_tree`` spans).  The
+    spans go to the active recorder, if any (`observe`); the debug
+    switches print from them."""
+    device = resolve_device(device)
+    mesh = active_mesh()
+    if mesh is not None and device != mesh.device:
+        raise ValueError(f"device {device}, but this rank's mesh runs on "
+                         f"{mesh.device}")
+    # under a mesh every stack is held in FFT order (this rank's share):
+    # the row-order -> FFT-order steps below are the single device's
+    to_fft = domain.to_fft_order if mesh is None else (lambda st: st)
+    with observe.proving() as rec, observe.phase("prove") as root:
+        with observe.phase("trace") as p_trace:
+            with observe.span("public_data", label="public data"):
+                channel = config.make_channel()
+                config.mix_into(channel)
+                public_data = PublicData.new(prover_input)
+                public_data.mix_into(channel)
+                relations = Relations()
+                comps = ComponentSet(relations)
+            # each component's rows go to the device the moment they
+            # exist; table multiplicities are scatter-adds over those
+            # uploaded stacks
+            counter = framework.TableCounter(relations, *SCALE.key(), device)
+            uploaded = {}
+
+            def _upload(comp):
+                dev = getattr(comp, "device_stack", None)
+                if comp.trace_rows is None:
+                    if dev is not None:
+                        uploaded[id(comp)] = dev
+                    return
+                if comp.zero_witness:
+                    return
+                with observe.span("upload", component=comp.name):
+                    if mesh is None:
+                        st = upload_rows(comp.trace_rows, device)
+                    else:
+                        st = upload_fft_share(comp.trace_rows, device)
+                uploaded[id(comp)] = st
+                with observe.span("count", component=comp.name):
+                    counter.add(comp, st)
+
+            with observe.span("write_traces", label=(
+                    "write_traces (host, uploads pipelined; upload "
+                    "{upload:.2f}s count {count:.2f}s)")):
+                comps.write_traces(
+                    prover_input, on_component=_upload, table_counter=counter
+                )
+            scheme = pcs.CommitmentSchemeProver(channel, config)
+
+            # phase 0: preprocessed (cached; only the root mixing runs per
+            # proof)
+            with observe.span("commit", phase=0, label="phase0 commit"):
+                _, pre_owners = comps.preprocessed_columns()
+                scheme.commit_phase(preprocessed_phase(comps, config, device))
+
+            # claim: mix log sizes; phase 1: trace
+            with observe.span("commit", phase=1, label="phase1 trace commit"):
+                for comp in comps.all:
+                    channel.mix_u64(comp.log_size)
+                trace_stacks = [
+                    torch.zeros(
+                        (comp.n_trace_cols, local_len(1 << comp.log_size)),
+                        dtype=torch.int64, device=device,
+                    )
+                    if comp.zero_witness
+                    else uploaded[id(comp)]
+                    for comp in comps.all
+                ]
+                scheme.commit(
+                    [
+                        (comp.log_size, st if comp.zero_witness else to_fft(st))
+                        for comp, st in zip(comps.all, trace_stacks)
+                    ]
+                )
+
+        with observe.phase("interaction") as p_inter:
+            with observe.span("interaction_pow"):
+                nonce = channel.grind(INTERACTION_POW_BITS)
+                channel.mix_u64(nonce)
+            # relations + interaction traces (device tape path; columns
+            # stay stacked)
+            relations.draw(channel)
+            with observe.span("interaction_traces", label="interaction traces"):
+                claimed_sums, inter_entries = _interaction_traces(
+                    comps, trace_stacks, device, mesh, to_fft, observer)
+            channel.mix_felts(claimed_sums)
+            with observe.span("commit", phase=2, label="phase2 commit"):
+                scheme.commit(inter_entries)
+
+        with observe.phase("composition") as p_comp:
+            composition_coeff = channel.draw_felt()
+            pre_owner_map = {id(c): (s, n) for c, s, n in pre_owners}
+            with observe.span("compose", label="composition computed"):
+                comp_evals, comp_elog = framework.compute_composition(
+                    comps.all, relations,
+                    scheme.phases[0], scheme.phases[1], scheme.phases[2],
+                    pre_owner_map, claimed_sums, composition_coeff,
+                    blowup=config.fri_config.log_blowup_factor,
+                    observer=observer,
+                )
+            # composition is a "trace" of log comp_elog committed with
+            # blowup
+            with observe.span("commit", phase=3, label="phase3 commit"):
+                scheme.commit([(comp_elog, torch.stack(comp_evals))])
+
+        with observe.phase("pcs", label="pcs prove_values") as p_pcs:
+            with observe.span("oods"):
+                z, z_prevs = oods_point_and_prevs(channel, comps.log_sizes())
+                sample_points = build_sample_points(comps, z, z_prevs,
+                                                    pre_owners)
+            pcs_proof = scheme.prove_values(sample_points)
 
     if timing is not None:
         timing.update(
-            trace=t_trace - t0, interaction=t_inter - t_trace,
-            composition=t_comp - t_inter, pcs=t_end - t_comp, total=t_end - t0,
+            trace=p_trace.seconds, interaction=p_inter.seconds,
+            composition=p_comp.seconds, pcs=p_pcs.seconds, total=root.seconds,
         )
         if config.framing == "stwo":
             # inside the phases above: host stwo tree builds + decommit
-            timing["host_trees"] = scheme.host_tree_s
+            timing["host_trees"] = sum(
+                s.seconds for s in rec.spans
+                if s.name == "stwo_host_tree" and s.root == root.id)
 
     return Proof(
         log_sizes=comps.log_sizes(),

@@ -36,6 +36,7 @@ import torch
 
 from ...field import m31
 from ...parallel import sharded
+from .. import observe
 
 P = (1 << 31) - 1
 M31_CIRCLE_LOG_ORDER = 31
@@ -104,17 +105,17 @@ def coset_points(log_size: int):
 
     Built in O(log n) vectorized doublings: arr_{t+1} = arr_t ++ (arr_t + 2^t*step).
     """
-    n = 1 << log_size
-    step_index = subgroup_gen_index(log_size)  # 2^(31-log_size)
-    start = point_at_index(subgroup_gen_index(log_size + 1))
-    xs = np.array([start[0]], dtype=np.uint32)
-    ys = np.array([start[1]], dtype=np.uint32)
-    for t in range(log_size):
-        shift = point_at_index((step_index << t) % (1 << 31))
-        nx, ny = _point_add_np(xs, ys, shift)
-        xs = np.concatenate([xs, nx])
-        ys = np.concatenate([ys, ny])
-    return xs, ys
+    with observe.span("host_inverse", of="coset_points", log=log_size):
+        step_index = subgroup_gen_index(log_size)  # 2^(31-log_size)
+        start = point_at_index(subgroup_gen_index(log_size + 1))
+        xs = np.array([start[0]], dtype=np.uint32)
+        ys = np.array([start[1]], dtype=np.uint32)
+        for t in range(log_size):
+            shift = point_at_index((step_index << t) % (1 << 31))
+            nx, ny = _point_add_np(xs, ys, shift)
+            xs = np.concatenate([xs, nx])
+            ys = np.concatenate([ys, ny])
+        return xs, ys
 
 
 def to_fft_order(v):
@@ -147,24 +148,25 @@ def fft_twiddles(log_size: int):
     (for the inverse FFT), with the 1/2 butterfly normalization folded in
     separately by the caller.
     """
-    n = 1 << log_size
-    xs, ys = coset_points(log_size)
-    # FFT order of the domain
-    fx = to_fft_order(xs)
-    fy = to_fft_order(ys)
-    m = n // 2
-    levels = [fy[:m].copy()]  # y-twiddles: y of H points
-    cur_x = fx[:m].copy()  # x of H
-    size = m
-    while size > 1:
-        levels.append(cur_x[: size // 2].copy())
-        # doubled coset x-coords: pi(x) = 2x^2 - 1 of the first half
-        cur_x = (
-            (2 * cur_x[: size // 2].astype(np.uint64) ** 2 - 1) % P
-        ).astype(np.uint32)
-        size //= 2
-    inv_levels = [m31.inv_np(lv) for lv in levels]
-    return levels, inv_levels
+    with observe.span("host_inverse", of="fft_twiddles", log=log_size):
+        n = 1 << log_size
+        xs, ys = coset_points(log_size)
+        # FFT order of the domain
+        fx = to_fft_order(xs)
+        fy = to_fft_order(ys)
+        m = n // 2
+        levels = [fy[:m].copy()]  # y-twiddles: y of H points
+        cur_x = fx[:m].copy()  # x of H
+        size = m
+        while size > 1:
+            levels.append(cur_x[: size // 2].copy())
+            # doubled coset x-coords: pi(x) = 2x^2 - 1 of the first half
+            cur_x = (
+                (2 * cur_x[: size // 2].astype(np.uint64) ** 2 - 1) % P
+            ).astype(np.uint32)
+            size //= 2
+        inv_levels = [m31.inv_np(lv) for lv in levels]
+        return levels, inv_levels
 
 
 @lru_cache(maxsize=None)
@@ -172,12 +174,14 @@ def vanishing_on_domain(trace_log_size: int, eval_log_size: int):
     """V_{trace}(p) for p over the size-2^eval_log_size canonic domain
     (row order): pi^(trace_log_size - 1)(x_p).  Returns (values, inverses)
     as uint32 arrays."""
-    xs, _ = coset_points(eval_log_size)
-    v = xs.astype(np.uint64)
-    for _ in range(trace_log_size - 1):
-        v = (2 * v * v - 1) % P
-    v = v.astype(np.uint32)
-    return v, m31.inv_np(v)
+    with observe.span("host_inverse", of="vanishing_on_domain",
+                      log=trace_log_size, eval_log=eval_log_size):
+        xs, _ = coset_points(eval_log_size)
+        v = xs.astype(np.uint64)
+        for _ in range(trace_log_size - 1):
+            v = (2 * v * v - 1) % P
+        v = v.astype(np.uint32)
+        return v, m31.inv_np(v)
 
 
 # ---------------------------------------------------------------------------
@@ -238,10 +242,11 @@ def fri_twiddles_bitrev(log_size: int):
     fold), t_j (j>=1) = 1/x over the level-j line domain bit-reversed.
     Folding at level j pairs positions (2q, 2q+1) with twiddle index q.
     """
-    _, inv_levels = fft_twiddles(log_size)
-    out = []
-    for j, lv in enumerate(inv_levels):
-        lg = log_size - 1 - j
-        assert lv.shape[0] == 1 << lg
-        out.append(bit_reverse(lv, lg))
-    return out
+    with observe.span("host_inverse", of="fri_twiddles_bitrev", log=log_size):
+        _, inv_levels = fft_twiddles(log_size)
+        out = []
+        for j, lv in enumerate(inv_levels):
+            lg = log_size - 1 - j
+            assert lv.shape[0] == 1 << lg
+            out.append(bit_reverse(lv, lg))
+        return out

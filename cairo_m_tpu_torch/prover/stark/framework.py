@@ -32,6 +32,7 @@ import torch
 from ...field import m31
 from ...field.qm31 import qinv, qinv_np, qmul, qmul_np
 from ...parallel import sharded
+from .. import observe
 from . import domain, fft
 from .air import (
     Component,
@@ -233,7 +234,8 @@ def interaction_plan(comp, relations):
         n_entries_box.append(n_e)
         return outs
 
-    plan = _record_with_dyn_relations(relations, build2)
+    with observe.span("plan_record", kind="interaction", component=comp.name):
+        plan = _record_with_dyn_relations(relations, build2)
     result = (plan, n_entries_box[0])
     _PLAN_CACHE[key] = result
     return result
@@ -375,10 +377,11 @@ def table_count_plan(comp, relations):
         # plain recording — no relation z/alpha dyn consts: entries are
         # collected raw (no combine), so the plan has no per-proof
         # constants and can run before relations.draw
-        rec = WideRecorder()
-        ops = WideOps(rec)
-        outs = build(rec, ops)
-        plan = schedule_wide(rec, outs, width=_WIDE_W)
+        with observe.span("plan_record", kind="tcount", component=comp.name):
+            rec = WideRecorder()
+            ops = WideOps(rec)
+            outs = build(rec, ops)
+            plan = schedule_wide(rec, outs, width=_WIDE_W)
         result = (plan, meta_box[0])
     _PLAN_CACHE[key] = result
     return result
@@ -476,7 +479,7 @@ class TableCounter:
         if sharded.active_mesh() is not None:
             acc = [sharded.psum(a) for a in acc]
         for a in acc:
-            if int(a.max()) >= P:
+            if int(observe.pull(a.max())) >= P:
                 raise OverflowError("table multiplicity count reached P")
         if sharded.active_mesh() is not None:
             acc = [sharded.maybe_shard(domain.to_fft_order(a)).contiguous()
@@ -569,7 +572,8 @@ def composition_plan(comp, relations):
         vinv = rec.bank_src("v", 0, 0)
         return list(ops.emul_b(acc, vinv))
 
-    plan = _record_with_dyn_relations(relations, build)
+    with observe.span("plan_record", kind="composition", component=comp.name):
+        plan = _record_with_dyn_relations(relations, build)
     _PLAN_CACHE[key] = plan
     return plan
 
@@ -625,46 +629,47 @@ def compute_composition(
             continue
         if observer is not None:
             observer.begin("composition", comp)
-        plan = composition_plan(comp, relations)
-        consts = plan.const_values(
-            _DynResolver(
-                relations,
-                shift=logup_shift_scalar(claimed_sums[i], l),
-                apows=apows,
+        with observe.span("dispatch", stage="composition", component=comp.name):
+            plan = composition_plan(comp, relations)
+            consts = plan.const_values(
+                _DynResolver(
+                    relations,
+                    shift=logup_shift_scalar(claimed_sums[i], l),
+                    apows=apows,
+                )
             )
-        )
-        text = trace_phase.stacked_ext[elog]
-        iext = inter_phase.stacked_ext[elog]
-        pext = pre_phase.stacked_ext.get(elog)
-        if pext is None:
-            pext = text.new_zeros((0, text.shape[-1]))
-        Kt, Ki, Kp = int(text.shape[0]), int(iext.shape[0]), int(pext.shape[0])
-        pre_start = pre_owner_map.get(id(comp), (0, 0))[0]
-        roll = 1 << blowup
-        src = np.zeros(len(plan.used_bank), np.int64)
-        sh = np.zeros(len(plan.used_bank), np.int64)
-        for j, (kind, idx, offset) in enumerate(plan.used_bank):
-            if kind == "t":
-                _, pos = trace_phase.group_index[ti + idx]
-                src[j] = pos
-            elif kind == "i":
-                _, pos = inter_phase.group_index[ii + idx]
-                src[j] = Kt + pos
-            elif kind == "p":
-                _, pos = pre_phase.group_index[pre_start + idx]
-                src[j] = Kt + Ki + pos
-            else:  # vanishing inverse row
-                src[j] = Kt + Ki + Kp
-            sh[j] = (roll * offset) % n
-        # the cached row is whole; under a row mesh this rank's share
-        vrow = sharded.maybe_shard(_vanishing_row(l, elog, text.device))
-        out = run_wide((text, iext, pext, vrow), src, sh, consts, plan, elog)
-        contrib = tuple(out[k] for k in range(4))
-        after = sum(counts[i + 1 :])
-        w4 = tuple(int(x) for x in _qpow_scalar(random_coeff, after))
-        # accumulate weighted contributions per evaluation domain; the
-        # ifft+embed runs ONCE per elog instead of once per component
-        weighted = qmul(contrib, w4)
+            text = trace_phase.stacked_ext[elog]
+            iext = inter_phase.stacked_ext[elog]
+            pext = pre_phase.stacked_ext.get(elog)
+            if pext is None:
+                pext = text.new_zeros((0, text.shape[-1]))
+            Kt, Ki, Kp = int(text.shape[0]), int(iext.shape[0]), int(pext.shape[0])
+            pre_start = pre_owner_map.get(id(comp), (0, 0))[0]
+            roll = 1 << blowup
+            src = np.zeros(len(plan.used_bank), np.int64)
+            sh = np.zeros(len(plan.used_bank), np.int64)
+            for j, (kind, idx, offset) in enumerate(plan.used_bank):
+                if kind == "t":
+                    _, pos = trace_phase.group_index[ti + idx]
+                    src[j] = pos
+                elif kind == "i":
+                    _, pos = inter_phase.group_index[ii + idx]
+                    src[j] = Kt + pos
+                elif kind == "p":
+                    _, pos = pre_phase.group_index[pre_start + idx]
+                    src[j] = Kt + Ki + pos
+                else:  # vanishing inverse row
+                    src[j] = Kt + Ki + Kp
+                sh[j] = (roll * offset) % n
+            # the cached row is whole; under a row mesh this rank's share
+            vrow = sharded.maybe_shard(_vanishing_row(l, elog, text.device))
+            out = run_wide((text, iext, pext, vrow), src, sh, consts, plan, elog)
+            contrib = tuple(out[k] for k in range(4))
+            after = sum(counts[i + 1 :])
+            w4 = tuple(int(x) for x in _qpow_scalar(random_coeff, after))
+            # accumulate weighted contributions per evaluation domain; the
+            # ifft+embed runs ONCE per elog instead of once per component
+            weighted = qmul(contrib, w4)
         if observer is not None:
             observer.end("composition", comp, weighted)
         acc = by_elog.get(elog)
@@ -674,7 +679,8 @@ def compute_composition(
         )
         ti += comp.n_trace_cols
         ii += 4 * comp.n_interaction_cols()
-    return composition_from_sums(by_elog, max_elog), max_elog
+    with observe.span("combine"):
+        return composition_from_sums(by_elog, max_elog), max_elog
 
 
 def composition_from_sums(by_elog: dict, max_elog: int):

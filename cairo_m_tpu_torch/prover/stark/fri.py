@@ -30,7 +30,6 @@ degree bound.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -293,7 +292,6 @@ class FriProver:
         from a bit-reversed host copy; folds and transcript order are
         unchanged."""
         self.config = config
-        self.host_tree_s = 0.0  # stwo framing: host seconds in layer trees
         by_log: dict[int, list] = {}
         for l, c in columns:
             by_log.setdefault(int(l), []).append(c)
@@ -312,81 +310,93 @@ class FriProver:
         # twiddle
         y_inv = sharded.share_of(_fri_tw_dev(self.max_log, 0, device), top,
                                  self.max_log)
-        micro = observe.Micro("fri", device)
-        layer = _first_fold(top, y_inv, a0sq, alpha0)  # (4, n/2)
-        micro.mark(f"first fold {int(top.shape[0])} cols @ {self.max_log}")
+        with observe.span("first_fold", cols=int(top.shape[0]), log=self.max_log,
+                          micro=("fri", "first fold {cols} cols @ {log}")):
+            layer = _first_fold(top, y_inv, a0sq, alpha0)  # (4, n/2)
         k = self.max_log - 1
-        on_host = False
         while k > last:
-            if not on_host and k <= _FRI_HOST_LOG:
-                # ONE pull
-                layer = sharded.whole(layer, k).cpu().numpy().astype(np.uint32)
-                on_host = True
-            # layers live in NATURAL (fft) order; each commit bit-reverses
-            # its own copy so the committed bytes stay protocol-identical
-            commit_layer = domain.bit_reverse(layer, k)
-            if framing == "stwo":
-                if not on_host:
-                    commit_layer = sharded.whole_commit(commit_layer, k)
-                    commit_layer = commit_layer.to(torch.int32).cpu().numpy()
-                t = time.perf_counter()
-                tree = stwo_merkle.StwoMerkleTree(list(commit_layer))
-                self.host_tree_s += time.perf_counter() - t
-            else:
-                tree = merkle.commit(commit_layer, log_size=k)
-            self.inner_trees.append((k, tree))
-            channel.mix_root(tree.root())
-            alpha = channel.draw_felt()
-            fold_in = by_log.get(k)  # columns entering at the NEXT size
-            if on_host:
-                x_inv_np = _fri_tw_nat_np(self.max_log, self.max_log - k)
-                l4 = tuple(np.asarray(layer[j]) for j in range(4))
-                folded = _fold_pairs_np(l4, x_inv_np, alpha)
-                if fold_in:
-                    asq = qscalar_mul(alpha, alpha)
-                    y_inv_np = _fri_tw_nat_np(k, 0)
-                    # one pull for all entering columns (vs 4 per column)
-                    pulled = (
-                        sharded.whole(torch.stack([torch.stack(c) for c in fold_in]), k)
-                        .cpu().numpy().astype(np.uint32)
-                    )
-                    cols = [
-                        tuple(pulled[i][j] for j in range(4))
-                        for i in range(len(fold_in))
-                    ]
-                    fin = _fold_pairs_np(
-                        _combine_np(cols, asq), y_inv_np, alpha
-                    )
-                    aw = tuple(np.full_like(folded[0], int(x)) for x in asq)
-                    folded = tuple(
-                        m31.add_np(x, y)
-                        for x, y in zip(qmul_np(folded, aw), fin)
-                    )
-                layer = np.stack(folded)
-            else:
-                x_inv = sharded.share_of(
-                    _fri_tw_dev(self.max_log, self.max_log - k, device), layer, k
-                )
-                extra = None
-                if fold_in:
-                    asq = qscalar_mul(alpha, alpha)
-                    stack = torch.stack([torch.stack(c) for c in fold_in])
-                    extra = (stack,
-                             sharded.share_of(_fri_tw_dev(k, 0, device), stack, k),
-                             asq)
-                layer = _fold_line(layer, x_inv, alpha, extra)
-            micro.mark(f"layer k={k} host={on_host}")
+            # the layers at or below _FRI_HOST_LOG are folded on the host
+            on_host = k <= _FRI_HOST_LOG
+            with observe.span("layer", k=k, host=on_host,
+                              micro=("fri", "layer k={k} host={host}")):
+                layer = self._layer(channel, layer, k, on_host, framing,
+                                    by_log.get(k), device)
             k -= 1
 
         # last layer is sent in commit order (the verifier's convention)
-        if not on_host:
-            layer = sharded.whole(layer, k).cpu().numpy()
-        host = domain.bit_reverse(np.asarray(layer), last)
-        self.last_layer = [
-            tuple(int(host[j][i]) for j in range(4))
-            for i in range(host.shape[1])
-        ]
-        channel.mix_felts(self.last_layer)
+        with observe.span("last_layer"):
+            if not isinstance(layer, np.ndarray):
+                layer = observe.pull(sharded.whole(layer, k))
+            host = domain.bit_reverse(layer, last)
+            self.last_layer = [
+                tuple(int(host[j][i]) for j in range(4))
+                for i in range(host.shape[1])
+            ]
+            channel.mix_felts(self.last_layer)
+
+    def _layer(self, channel, layer, k, on_host, framing, fold_in, device):
+        """Commit the layer of log size ``k``, mix its root, draw its alpha
+        and fold it (with the columns entering at that size, ``fold_in``)
+        -> the next layer: a device tensor, or a NumPy array from the first
+        layer folded on the host (ONE pull at the boundary)."""
+        if on_host and not isinstance(layer, np.ndarray):
+            layer = observe.pull(sharded.whole(layer, k)).astype(np.uint32)
+        # layers live in NATURAL (fft) order; each commit bit-reverses its
+        # own copy so the committed bytes stay protocol-identical
+        commit_layer = domain.bit_reverse(layer, k)
+        if framing == "stwo":
+            if not on_host:
+                commit_layer = sharded.whole_commit(commit_layer, k)
+                commit_layer = observe.pull(commit_layer.to(torch.int32))
+            with observe.phase("stwo_host_tree"):
+                tree = stwo_merkle.StwoMerkleTree(list(commit_layer))
+        else:
+            with observe.span("merkle", log=k):
+                tree = merkle.commit(commit_layer, log_size=k)
+        self.inner_trees.append((k, tree))
+        channel.mix_root(tree.root())
+        alpha = channel.draw_felt()
+        with observe.span("fold", host=on_host):
+            return self._fold(layer, k, on_host, alpha, fold_in, device)
+
+    def _fold(self, layer, k, on_host, alpha, fold_in, device):
+        """-> ``layer`` folded by ``alpha``, the columns of ``fold_in``
+        folded in: on the host (NumPy) or on the device."""
+        if on_host:
+            x_inv_np = _fri_tw_nat_np(self.max_log, self.max_log - k)
+            l4 = tuple(np.asarray(layer[j]) for j in range(4))
+            folded = _fold_pairs_np(l4, x_inv_np, alpha)
+            if fold_in:
+                asq = qscalar_mul(alpha, alpha)
+                y_inv_np = _fri_tw_nat_np(k, 0)
+                # one pull for all entering columns (vs 4 per column)
+                pulled = observe.pull(sharded.whole(
+                    torch.stack([torch.stack(c) for c in fold_in]), k)
+                ).astype(np.uint32)
+                cols = [
+                    tuple(pulled[i][j] for j in range(4))
+                    for i in range(len(fold_in))
+                ]
+                fin = _fold_pairs_np(
+                    _combine_np(cols, asq), y_inv_np, alpha
+                )
+                aw = tuple(np.full_like(folded[0], int(x)) for x in asq)
+                folded = tuple(
+                    m31.add_np(x, y)
+                    for x, y in zip(qmul_np(folded, aw), fin)
+                )
+            return np.stack(folded)
+        x_inv = sharded.share_of(
+            _fri_tw_dev(self.max_log, self.max_log - k, device), layer, k
+        )
+        extra = None
+        if fold_in:
+            asq = qscalar_mul(alpha, alpha)
+            stack = torch.stack([torch.stack(c) for c in fold_in])
+            extra = (stack,
+                     sharded.share_of(_fri_tw_dev(k, 0, device), stack, k),
+                     asq)
+        return _fold_line(layer, x_inv, alpha, extra)
 
     def stwo_decommit(self, queries):
         """(roots, StwoPhaseOpenings) for the stwo framing."""

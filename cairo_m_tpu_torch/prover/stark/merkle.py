@@ -25,6 +25,7 @@ import torch
 
 from ...hash import blake2s
 from ...parallel import sharded
+from .. import observe
 
 
 def _pad_cols(k: int) -> int:
@@ -67,8 +68,7 @@ class MerkleTree:
     on the host: levels == [], host_base == 0 and host_chain covers every
     level (the FRI tail layers)."""
 
-    def __init__(self, columns, defer_top: bool = False, log_size: int = None,
-                 micro=None):
+    def __init__(self, columns, defer_top: bool = False, log_size: int = None):
         """columns: a stacked (n_cols, n) NumPy array or int64 tensor.
 
         ``defer_top=True``: don't pull the top levels yet — the caller
@@ -81,8 +81,8 @@ class MerkleTree:
         it, and the levels from `host_base` up are gathered from every rank
         (`finish_host_shared`) and finished on the host.
 
-        ``micro``: an `observe.Micro` that times the leaves and the
-        pyramid of a device tree (``CM_DEBUG_MICRO``)."""
+        A device tree records ``leaves`` and ``pyramid`` spans
+        (`observe`; ``CM_DEBUG_MICRO`` prints them)."""
         stacked = columns
         n_cols, n = int(stacked.shape[0]), int(stacked.shape[1])
         self.columns = stacked
@@ -111,12 +111,12 @@ class MerkleTree:
         self.packed = torch.empty(
             (8, 2 * n - 1), dtype=torch.int64, device=stacked.device
         )
-        blake2s.hash_leaves(stacked.contiguous(), kp, out=self.packed[:, :n])
-        if micro is not None:
-            micro.mark(f"merkle leaves k={n_cols} cl={self.log_size}")
-        blake2s.merkle_pyramid(self.packed)
-        if micro is not None:
-            micro.mark(f"merkle pyramid cl={self.log_size}")
+        with observe.span("leaves", k=n_cols, log=self.log_size,
+                          micro=("micro", "merkle leaves k={k} cl={log}")):
+            blake2s.hash_leaves(stacked.contiguous(), kp, out=self.packed[:, :n])
+        with observe.span("pyramid", log=self.log_size,
+                          micro=("micro", "merkle pyramid cl={log}")):
+            blake2s.merkle_pyramid(self.packed)
         local_log = n.bit_length() - 1
         offs = [blake2s.pyramid_offset(n, l) for l in range(local_log + 2)]
         self.levels = [self.packed[:, a:b] for a, b in zip(offs, offs[1:])]
@@ -128,9 +128,9 @@ class MerkleTree:
             self.host_chain = None  # caller batch-pulls and finish_host()es
             self._root = None
         elif self.share is not None:
-            self.finish_host_shared(sharded.all_gather(self.top_dev).cpu().numpy())
+            self.finish_host_shared(observe.pull(sharded.all_gather(self.top_dev)))
         else:
-            self.finish_host(self.top_dev.cpu().numpy())
+            self.finish_host(observe.pull(self.top_dev))
 
     def finish_host(self, top_words: np.ndarray):
         """Mirror the upper levels on the host from the pulled `top_dev`
@@ -214,7 +214,7 @@ class DecommitPlan:
             parts = [self._owned_values(tree)]
         else:
             dev = tree.columns.device
-            pos = torch.tensor(self.positions, dtype=torch.int64, device=dev)
+            pos = observe.push(np.asarray(self.positions, np.int64), dev)
             parts = [tree.columns.index_select(1, pos).reshape(-1)]
         # host_chain[0] is pyramid level host_base
         chain_base = tree.host_base
@@ -248,7 +248,7 @@ class DecommitPlan:
             if tree.share is not None and sib_idx:
                 parts.append(self._owned_siblings(tree, sib_idx))
             elif sib_idx:
-                idx = torch.tensor(sib_idx, dtype=torch.int64, device=dev)
+                idx = observe.push(np.asarray(sib_idx, np.int64), dev)
                 # one gather for all device levels; (S, 8) word-major per
                 # digest
                 parts.append(tree.packed.index_select(1, idx).T.reshape(-1))
@@ -272,9 +272,11 @@ class DecommitPlan:
         vals = torch.zeros((self.n_cols, len(self.positions)), dtype=torch.int64,
                            device=dev)
         if mine:
-            local = torch.tensor([self.positions[j] - block * nl for j in mine],
-                                 dtype=torch.int64, device=dev)
-            vals[:, torch.tensor(mine, device=dev)] = tree.columns.index_select(1, local)
+            local = observe.push(
+                np.asarray([self.positions[j] - block * nl for j in mine], np.int64),
+                dev)
+            vals[:, observe.push(np.asarray(mine, np.int64), dev)] = (
+                tree.columns.index_select(1, local))
         return vals.reshape(-1)
 
     def _owned_siblings(self, tree, sib_idx) -> torch.Tensor:
@@ -297,8 +299,9 @@ class DecommitPlan:
                 local.append(blake2s.pyramid_offset(nl, lvl) + node % width)
         sibs = torch.zeros((len(sib_idx), 8), dtype=torch.int64, device=dev)
         if mine:
-            idx = torch.tensor(local, dtype=torch.int64, device=dev)
-            sibs[torch.tensor(mine, device=dev)] = tree.packed.index_select(1, idx).T
+            idx = observe.push(np.asarray(local, np.int64), dev)
+            sibs[observe.push(np.asarray(mine, np.int64), dev)] = (
+                tree.packed.index_select(1, idx).T)
         return sibs.reshape(-1)
 
     def finish(self, host_flat: np.ndarray) -> MerkleDecommitment:
@@ -331,15 +334,16 @@ def finish_plans(plans: list) -> list:
         if sharded.active_mesh() is not None:
             # every entry comes from the one rank that holds it
             flat = sharded.psum_owned(flat)
-        host = flat.cpu().numpy()
+        host = observe.pull(flat)
     out = []
     off = 0
-    for p in plans:
-        if p.flat is None:
-            out.append(p.finish(p.host_flat))
-        else:
-            out.append(p.finish(host[off : off + p.size]))
-            off += p.size
+    with observe.span("finish"):
+        for p in plans:
+            if p.flat is None:
+                out.append(p.finish(p.host_flat))
+            else:
+                out.append(p.finish(host[off : off + p.size]))
+                off += p.size
     return out
 
 

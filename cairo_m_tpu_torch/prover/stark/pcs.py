@@ -28,7 +28,6 @@ folds, the last-layer degree, and the PoW.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -110,53 +109,50 @@ class CommitmentPhase:
         self.stacked_ext = {}  # commit_log -> (k, 2n) device, FFT order
         self.trees = {}
         stacked_commit = {}  # commit_log -> (k, 2n) device, commit order
-        micro = (observe.Micro("micro", columns_fft[0][1].device)
-                 if columns_fft else None)
         for l in sorted(groups, reverse=True):
             cl = l + log_blowup
             pieces = groups[l]
-            stacked = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=0)
-            coeffs, ext_cols, commit_cols = _commit_pipeline(stacked, l, cl)
-            micro.mark(f"fft k={int(stacked.shape[0])} log={l}->{cl}")
+            with observe.span("lde", k=counts[l], log=l, commit_log=cl,
+                              micro=("micro", "fft k={k} log={log}->{commit_log}")):
+                stacked = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=0)
+                coeffs, ext_cols, commit_cols = _commit_pipeline(stacked, l, cl)
             self.stacked_coeffs[l] = coeffs
             self.stacked_ext[cl] = ext_cols
             if framing == "stwo":
                 stacked_commit[cl] = commit_cols
             else:
-                self.trees[cl] = merkle.MerkleTree(
-                    commit_cols, defer_top=True, log_size=cl, micro=micro
-                )
-        # host seconds spent building the stwo tree; a proof adds them to
-        # its own count once (`CommitmentSchemeProver.commit_phase`)
-        self.host_tree_s = 0.0
+                with observe.span("merkle", log=cl):
+                    self.trees[cl] = merkle.MerkleTree(
+                        commit_cols, defer_top=True, log_size=cl
+                    )
         if framing == "stwo":
             self.stwo_tree = self._stwo_tree(stacked_commit, log_blowup)
-            if micro is not None:
-                micro.mark("stwo mixed-degree tree (host)")
             return
         # ONE device->host pull of every tree's upper levels (hashed on the
         # device; the host only mirrors them)
         logs = sorted(self.trees, reverse=True)
         if logs:
-            tops = torch.cat([self.trees[cl].top_dev for cl in logs], dim=1)
-            if sharded.active_mesh() is None:
-                tops = tops.cpu().numpy()
+            with observe.span("tops", micro=("micro", "top pull + host mirror")):
+                self._finish_tops(logs)
+
+    def _finish_tops(self, logs):
+        tops = torch.cat([self.trees[cl].top_dev for cl in logs], dim=1)
+        if sharded.active_mesh() is not None:
+            # every rank's tops, rank order: the split trees' subtree tops
+            # are finished together, whole trees from rank 0's copy
+            tops = sharded.all_gather(tops)
+        tops = observe.pull(tops)
+        off = 0
+        for cl in logs:
+            tree = self.trees[cl]
+            m = int(tree.top_dev.shape[1])
+            if tops.ndim == 2:
+                tree.finish_host(tops[:, off : off + m])
+            elif tree.share is None:
+                tree.finish_host(tops[0, :, off : off + m])
             else:
-                # every rank's tops, rank order: the split trees' subtree
-                # tops are finished together, whole trees from rank 0's copy
-                tops = sharded.all_gather(tops).cpu().numpy()
-            off = 0
-            for cl in logs:
-                tree = self.trees[cl]
-                m = int(tree.top_dev.shape[1])
-                if tops.ndim == 2:
-                    tree.finish_host(tops[:, off : off + m])
-                elif tree.share is None:
-                    tree.finish_host(tops[0, :, off : off + m])
-                else:
-                    tree.finish_host_shared(tops[:, :, off : off + m])
-                off += m
-            micro.mark("top pull + host mirror")
+                tree.finish_host_shared(tops[:, :, off : off + m])
+            off += m
 
     def _stwo_tree(self, stacked_commit, log_blowup: int):
         """ONE device->host pull of every commit-order stack, then one
@@ -169,7 +165,7 @@ class CommitmentPhase:
         }
         flat = torch.cat([stacked_commit[cl].reshape(-1) for cl in logs])
         # M31 values fit in int32: half the bytes of the int64 carrier
-        flat = flat.to(torch.int32).cpu().numpy().view(np.uint32)
+        flat = observe.pull(flat.to(torch.int32)).view(np.uint32)
         pulled, off = {}, 0
         for cl in logs:
             k = int(stacked_commit[cl].shape[0])
@@ -179,10 +175,9 @@ class CommitmentPhase:
         for ci in range(len(self.trace_logs)):
             l, pos = self.group_index[ci]
             cols.append(pulled[l + log_blowup][pos])
-        t = time.perf_counter()
-        tree = stwo_merkle.StwoMerkleTree(cols)
-        self.host_tree_s = time.perf_counter() - t
-        return tree
+        with observe.phase("stwo_host_tree",
+                           micro=("micro", "stwo mixed-degree tree (host)")):
+            return stwo_merkle.StwoMerkleTree(cols)
 
     def roots(self):
         if self.framing == "stwo":
@@ -290,7 +285,6 @@ class CommitmentSchemeProver:
         self.channel = channel
         self.config = config
         self.phases: list[CommitmentPhase] = []
-        self.host_tree_s = 0.0  # stwo framing: host tree build + decommit
 
     def commit(self, columns_fft):
         """Commit a phase; mixes its roots into the channel."""
@@ -304,25 +298,14 @@ class CommitmentSchemeProver:
     def commit_phase(self, phase: CommitmentPhase):
         """Commit an already-built phase (e.g. the cached preprocessed
         tables, whose columns are proof-independent)."""
-        # a cached phase's tree counts for the proof that built it
-        self.host_tree_s += phase.host_tree_s
-        phase.host_tree_s = 0.0
         phase.mix_roots(self.channel)
         self.phases.append(phase)
         return len(self.phases) - 1
 
     def prove_values(self, sample_points) -> PcsProof:
         """sample_points: per phase, per column, list of QM31 circle points.
-        With ``CM_DEBUG_PHASES`` set, one line a step (`observe`)."""
-        debug = observe.phases_on()
-        t0 = time.time()
-
-        def _t(msg):
-            nonlocal t0
-            if debug:
-                print(f"  [pcs +{time.time() - t0:6.2f}s] {msg}", flush=True)
-            t0 = time.time()
-
+        One span a step (`observe`): ``sample``, ``alphas``, ``quotients``,
+        ``fri``, ``pow_grind``, ``decommit``."""
         channel = self.channel
         for phase, pts in zip(self.phases, sample_points):
             assert len(pts) == len(phase.trace_logs), (
@@ -331,71 +314,91 @@ class CommitmentSchemeProver:
             )
         # 1. sample + mix — all phases' point evaluations queued first, then
         # ONE device->host pull for everything
-        handles = [
-            phase.sample_dispatch(pts)
-            for phase, pts in zip(self.phases, sample_points)
-        ]
-        all_devs = [d for h in handles for d in h[1]]
-        flat = torch.cat(all_devs).cpu().numpy() if all_devs else np.zeros(0)
-        sampled = []
-        off = 0
-        for phase, h in zip(self.phases, handles):
-            vals, off = phase.sample_finish(h, flat, off)
-            sampled.append(vals)
-        _t("sample")
-        channel.mix_felts(
-            [v for phase_vals in sampled for col in phase_vals for v in col]
-        )
-        # 2. quotient alpha
-        random_coeff = channel.draw_felt()
-        # column handles are ((phase, commit_log), row) pairs into the phases'
-        # FFT-order extended stacks
-        stacks = {
-            (pi_, cl): phase.stacked_ext[cl]
-            for pi_, phase in enumerate(self.phases)
-            for cl in phase.stacked_ext
-        }
-        # enumerate (phase, column, point) -> alpha^k
-        samples = []
-        apow = (1, 0, 0, 0)
-        for pi_, (phase, pts, vals) in enumerate(
-            zip(self.phases, sample_points, sampled)
-        ):
-            for col_idx, (zs, vs) in enumerate(zip(pts, vals)):
-                cl = phase.commit_logs[col_idx]
-                _, pos = phase.group_index[col_idx]
-                for z, v in zip(zs, vs):
-                    samples.append((cl, ((pi_, cl), pos), z, v, apow))
-                    apow = fri.qscalar_mul(apow, random_coeff)
-        grouped = quotients.group_samples(samples)
-        quotient_cols = [
-            (l, quotients.quotient_column_device(l, batches, stacks))
-            for l, batches in sorted(grouped.items(), reverse=True)
-        ]
-        _t("quotients (dispatch)")
-        # 3. FRI commit
-        fri_prover = fri.FriProver(
-            channel, quotient_cols, self.config.fri_config,
-            framing=self.config.framing,
-        )
-        _t("fri commit")
-        # 4. PoW
-        nonce = channel.grind(self.config.pow_bits)
-        channel.mix_u64(nonce)
-        _t("pow grind")
-        # 5. queries (the channel's draw loops forever if it cannot find
-        # n_queries distinct positions)
-        max_log = fri_prover.max_log
-        n_queries = self.config.fri_config.n_queries
-        if n_queries > 1 << max_log:
-            raise ValueError(
-                f"n_queries={n_queries} exceeds the 2^{max_log} query domain"
+        with observe.span("sample", label="sample"):
+            with observe.span("evaluate"):
+                handles = [
+                    phase.sample_dispatch(pts)
+                    for phase, pts in zip(self.phases, sample_points)
+                ]
+                all_devs = [d for h in handles for d in h[1]]
+            flat = observe.pull(torch.cat(all_devs)) if all_devs else np.zeros(0)
+            with observe.span("finish"):
+                sampled = []
+                off = 0
+                for phase, h in zip(self.phases, handles):
+                    vals, off = phase.sample_finish(h, flat, off)
+                    sampled.append(vals)
+        with observe.span("alphas"):
+            channel.mix_felts(
+                [v for phase_vals in sampled for col in phase_vals for v in col]
             )
-        queries = channel.draw_queries(n_queries, max_log)
-        if self.config.framing == "stwo":
-            # 6'. stwo decommit: one mixed-tree opening per phase + one per
-            # FRI layer (host trees)
-            t = time.perf_counter()
+            # 2. quotient alpha
+            random_coeff = channel.draw_felt()
+            # enumerate (phase, column, point) -> alpha^k; column handles
+            # are ((phase, commit_log), row) pairs into the phases'
+            # FFT-order extended stacks
+            samples = []
+            apow = (1, 0, 0, 0)
+            for pi_, (phase, pts, vals) in enumerate(
+                zip(self.phases, sample_points, sampled)
+            ):
+                for col_idx, (zs, vs) in enumerate(zip(pts, vals)):
+                    cl = phase.commit_logs[col_idx]
+                    _, pos = phase.group_index[col_idx]
+                    for z, v in zip(zs, vs):
+                        samples.append((cl, ((pi_, cl), pos), z, v, apow))
+                        apow = fri.qscalar_mul(apow, random_coeff)
+            grouped = quotients.group_samples(samples)
+        with observe.span("quotients", label="quotients (dispatch)"):
+            stacks = {
+                (pi_, cl): phase.stacked_ext[cl]
+                for pi_, phase in enumerate(self.phases)
+                for cl in phase.stacked_ext
+            }
+            quotient_cols = [
+                (l, quotients.quotient_column_device(l, batches, stacks))
+                for l, batches in sorted(grouped.items(), reverse=True)
+            ]
+        # 3. FRI commit
+        with observe.span("fri", label="fri commit"):
+            fri_prover = fri.FriProver(
+                channel, quotient_cols, self.config.fri_config,
+                framing=self.config.framing,
+            )
+        # 4. PoW
+        with observe.span("pow_grind", label="pow grind"):
+            nonce = channel.grind(self.config.pow_bits)
+            channel.mix_u64(nonce)
+        stwo = self.config.framing == "stwo"
+        with observe.span("decommit", label="decommit (stwo framing)" if stwo
+                          else "decommit (phases + fri)"):
+            # 5. queries (the channel's draw loops forever if it cannot
+            # find n_queries distinct positions)
+            max_log = fri_prover.max_log
+            n_queries = self.config.fri_config.n_queries
+            if n_queries > 1 << max_log:
+                raise ValueError(
+                    f"n_queries={n_queries} exceeds the 2^{max_log} query domain"
+                )
+            queries = channel.draw_queries(n_queries, max_log)
+            if stwo:
+                decommitments, fri_proof = self._stwo_decommit(
+                    queries, max_log, fri_prover)
+            else:
+                decommitments, fri_proof = self._decommit(
+                    queries, max_log, fri_prover)
+        return PcsProof(
+            [p.roots() for p in self.phases],
+            sampled,
+            decommitments,
+            fri_proof,
+            nonce,
+        )
+
+    def _stwo_decommit(self, queries, max_log, fri_prover):
+        """6'. stwo decommit: one mixed-tree opening per phase + one per
+        FRI layer (host trees)."""
+        with observe.phase("stwo_host_tree"):
             decommitments = []
             for phase in self.phases:
                 qpl = {
@@ -405,42 +408,29 @@ class CommitmentSchemeProver:
                 queried, dec = phase.stwo_tree.decommit(qpl)
                 decommitments.append(stwo_merkle.StwoPhaseOpening(queried, dec))
             fri_roots, fri_openings = fri_prover.stwo_decommit(queries)
-            self.host_tree_s += fri_prover.host_tree_s + time.perf_counter() - t
-            _t("decommit (stwo framing)")
-            return PcsProof(
-                [p.roots() for p in self.phases],
-                sampled,
-                decommitments,
-                fri.FriProof(fri_roots, fri_openings, fri_prover.last_layer),
-                nonce,
-            )
-        # 6. decommit — all phase trees' AND FRI layer trees' openings in
-        # ONE device->host pull
+        return decommitments, fri.FriProof(fri_roots, fri_openings,
+                                           fri_prover.last_layer)
+
+    def _decommit(self, queries, max_log, fri_prover):
+        """6. decommit — all phase trees' AND FRI layer trees' openings in
+        ONE device->host pull."""
         plan_keys = []
         plans = []
-        for pi_, phase in enumerate(self.phases):
-            for cl, tree in phase.trees.items():
-                pairs = fri.pair_positions(queries, max_log, cl)
-                plans.append(merkle.DecommitPlan(tree, pairs))
-                plan_keys.append((pi_, cl))
-        _t("decommit: phase plans")
-        fri_roots, fri_plans = fri_prover.decommit_plans(queries)
-        _t("decommit: fri plans")
-        decs = merkle.finish_plans(plans + fri_plans)
-        _t("decommit: pull + finish")
+        with observe.span("plans", of="phases", label="decommit: phase plans"):
+            for pi_, phase in enumerate(self.phases):
+                for cl, tree in phase.trees.items():
+                    pairs = fri.pair_positions(queries, max_log, cl)
+                    plans.append(merkle.DecommitPlan(tree, pairs))
+                    plan_keys.append((pi_, cl))
+        with observe.span("plans", of="fri", label="decommit: fri plans"):
+            fri_roots, fri_plans = fri_prover.decommit_plans(queries)
+        with observe.span("openings", label="decommit: pull + finish"):
+            decs = merkle.finish_plans(plans + fri_plans)
         decommitments = [{} for _ in self.phases]
         for (pi_, cl), dec in zip(plan_keys, decs[: len(plans)]):
             decommitments[pi_][cl] = dec
-        fri_proof = fri.FriProof(
+        return decommitments, fri.FriProof(
             fri_roots, decs[len(plans) :], fri_prover.last_layer
-        )
-        _t("decommit (phases + fri)")
-        return PcsProof(
-            [p.roots() for p in self.phases],
-            sampled,
-            decommitments,
-            fri_proof,
-            nonce,
         )
 
 

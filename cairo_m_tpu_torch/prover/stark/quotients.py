@@ -34,6 +34,7 @@ import torch
 from ...field import m31
 from ...field.qm31 import qadd, qinv, qmul, qmul_m31, qsub
 from ...parallel import sharded
+from .. import observe
 from .fri import QZERO, qscalar_add, qscalar_mul, qscalar_mul_m31, qscalar_sub
 from . import domain
 
@@ -171,14 +172,14 @@ def quotient_column_device(log_size: int, batches, stacks):
             w[i] = apow
         dx, dy, dc = denominator_coeffs(b.z)
         term = _batch_term(
-            cols, torch.from_numpy(w).to(device), wa, wb, c, dx, dy, dc, px, py,
+            cols, observe.push(w, device), wa, wb, c, dx, dy, dc, px, py,
         )
         total = term if total is None else qadd(total, term)
     return total
 
 
 def _take_rows(stack, rows):
-    idx = torch.tensor(rows, dtype=torch.int64, device=stack.device)
+    idx = observe.push(np.asarray(rows, np.int64), stack.device)
     return stack.index_select(0, idx)
 
 

@@ -32,6 +32,7 @@ import torch
 from ... import kernels
 from ...field import m31
 from ...parallel import sharded
+from .. import observe
 
 P = (1 << 31) - 1
 
@@ -535,8 +536,13 @@ def kernel_program(plan: WidePlan) -> KernelProgram:
     register afterwards.  The results are those of the plan whatever the
     order: only the register numbering changes."""
     hit = plan.__dict__.get("_kernel_program")
-    if hit is not None:
-        return hit
+    if hit is None:
+        with observe.span("plan_record", kind="kernel_program"):
+            hit = plan.__dict__["_kernel_program"] = _build_kernel_program(plan)
+    return hit
+
+
+def _build_kernel_program(plan: WidePlan) -> KernelProgram:
     import heapq
 
     width = _BUNDLE
@@ -667,14 +673,12 @@ def kernel_program(plan: WidePlan) -> KernelProgram:
             n_fill += width - len(bundle)
     cols = list(zip(*rows)) if rows else [[]] * 6
     arr = [np.asarray(c, np.int64) for c in cols]
-    prog = KernelProgram(
+    return KernelProgram(
         op=arr[0], a=arr[1], a_const=arr[2].astype(bool), b=arr[3],
         b_const=arr[4].astype(bool), dst=arr[5],
         bank_reg=bank_reg, n_regs=max(1, next_reg), n_out=len(out_vals),
         width=width, n_fill=n_fill,
     )
-    plan.__dict__["_kernel_program"] = prog
-    return prog
 
 
 def smem_bytes(n_regs: int, lanes: int) -> int:
@@ -801,7 +805,7 @@ def run_plan(rows, const_vals, plan: WidePlan, variant: str | None = None):
     if isinstance(const_vals, torch.Tensor):  # already where the rows are
         consts = const_vals.to(device=device, dtype=torch.int64)
     else:
-        consts = torch.as_tensor(np.asarray(const_vals, np.int64), device=device)
+        consts = observe.push(np.asarray(const_vals, np.int64), device)
     if device.type == "cpu":
         instrs, out_regs = _plan_arrays(plan, B, device)
         return run_plan_plain(rows, consts, instrs, out_regs, plan.n_regs,
@@ -853,15 +857,15 @@ def run_wide(stacks, src, sh, const_vals, plan: WidePlan, elog: int,
     inv = np.empty(n, np.int64)
     inv[perm] = pos
     for v in np.unique(shifts):
-        lane_src = torch.from_numpy(inv[(pos + int(v)) % n]).to(device)
+        lane_src = observe.push(inv[(pos + int(v)) % n], device)
         for j, s in enumerate(stacks):
             sel = np.nonzero(
                 (shifts == v) & (src >= bounds[j]) & (src < bounds[j + 1])
             )[0]
             if sel.size == 0:
                 continue
-            r = torch.from_numpy(src[sel] - bounds[j]).to(device)
-            rows[torch.from_numpy(sel).to(device)] = (
+            r = observe.push(src[sel] - bounds[j], device)
+            rows[observe.push(sel, device)] = (
                 s.index_select(0, r).index_select(1, lane_src)
             )
     out = run_plan(rows, const_vals, plan)
@@ -891,13 +895,13 @@ def _run_wide_share(stacks, src, shifts, const_vals, plan: WidePlan, n: int):
             )[0]
             if sel.size == 0:
                 continue
-            r = torch.from_numpy(src[sel] - bounds[j]).to(device)
+            r = observe.push(src[sel] - bounds[j], device)
             sels.append(sel)
             parts.append(s.index_select(0, r))
         part = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
         if v:
             part = sharded.shift_rows(part, n, int(v))
-        rows[torch.from_numpy(np.concatenate(sels)).to(device)] = part
+        rows[observe.push(np.concatenate(sels), device)] = part
     return run_plan(rows, const_vals, plan)
 
 
