@@ -14,6 +14,10 @@ Under a row mesh (parallel/sharded.py) `ifft` takes a cyclic share of
 FFT-order evaluations and returns the block share of the coefficients,
 `fft` the reverse, and `eval_at_qpoint_folds` adds the ranks' partial sums.
 
+`eval_at_points` evaluates a whole sample step of the polynomial commitment
+(every stack at each of its QM31 points): on the card in one launch of
+``csrc/point_eval.cu`` (and one of its sum), on the CPU by the folds.
+
 The TPU package splits large transforms into a two-stage transposed layout
 and pads the batch axis around it (``_pad_lead``); both work around TPU lane
 width and an XLA TPU miscompile and are not carried over: every level here
@@ -27,6 +31,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ... import kernels
 from ...field import m31
 from ...parallel import sharded
 from . import domain
@@ -231,3 +236,152 @@ def eval_at_qpoint_folds(coeffs, log_size: int, tws):
             f = qscalar_mul(f, tuple(int(tws[j, k]) for k in range(4)))
     v = qmul(v, f)
     return tuple(sharded.psum_mod(torch.stack(v)).unbind(0))
+
+
+# A job of the kernel evaluates its stack at up to this many points with one
+# read of the coefficients: a log size's interaction columns are sampled at
+# the point and at the previous row's.
+_PE_POINTS = 2
+_PE_ROW = 16  # int64 fields of a job row (csrc/point_eval.cu)
+_PE_WARPS = 8  # warps of a block of the main grid
+# a warp takes 2^12 coefficients of a column (or that many in whole columns)
+_PE_SEG_LOG = 12
+
+
+def eval_at_points(jobs) -> torch.Tensor:
+    """The values of stacks of M31 coefficient columns at QM31 circle
+    points: a whole sample step of the polynomial commitment in one call.
+
+    ``jobs``: ``[(coeffs, log_size, points)]``, ``coeffs`` a contiguous
+    (k, 2^log_size) int64 stack (under a row mesh, or this rank's block
+    share of one), ``points`` a list of QM31 circle points.  Returns one
+    int64 tensor: for each job, for each of its points, the (4, k) limbs of
+    its columns' values, flattened, one after the other.  CUDA stacks go to
+    ``csrc/point_eval.cu`` (two launches for all jobs); CPU stacks take the
+    plain version, `eval_at_qpoint_folds` a job and point."""
+    device = None
+    for coeffs, log_size, _ in jobs:
+        if not isinstance(coeffs, torch.Tensor) or coeffs.dim() != 2:
+            raise ValueError("eval_at_points wants (k, 2^log_size) stacks")
+        if coeffs.dtype != torch.int64:
+            raise ValueError(f"eval_at_points wants int64 stacks, got {coeffs.dtype}")
+        if not coeffs.is_contiguous():
+            raise ValueError("eval_at_points wants contiguous stacks")
+        sharded.is_share(coeffs, log_size)  # raises for any other length
+        if device is not None and coeffs.device != device:
+            raise ValueError(f"eval_at_points: stacks on {device} and {coeffs.device}")
+        device = coeffs.device
+    if device is None or device.type == "cpu":
+        return _eval_at_points_plain(jobs)
+    if device.type != "cuda":
+        raise ValueError(f"eval_at_points: unsupported device {device}")
+    return _eval_at_points_cuda(jobs, device)
+
+
+def _eval_at_points_plain(jobs) -> torch.Tensor:
+    """Plain torch version of `eval_at_points`: the halving folds."""
+    vals = [
+        torch.stack(eval_at_qpoint_folds(
+            coeffs, log_size, point_eval_twiddles_host(z, log_size))).reshape(-1)
+        for coeffs, log_size, points in jobs
+        for z in points
+    ]
+    if not vals:
+        return torch.zeros(0, dtype=torch.int64)
+    return torch.cat(vals)
+
+
+def _point_eval_table(jobs):
+    """-> (table, twiddles, n_blocks, n_partials, n_sum_warps, n_values,
+    psum): the kernel's job rows (int64, `_PE_ROW` a row, a job of more than
+    `_PE_POINTS` points split) and its QM31 entries (int64, 4 a row).
+
+    A point's twiddles are one sequence for every log size it is evaluated
+    at: `point_eval_twiddles_host(z, L)` is the last L rows of
+    `point_eval_twiddles_host(z, L_max)`.  Under a row mesh a block share
+    contracts its local bits and its values carry the twiddles of the
+    rank's high bits; a whole stack's values carry 1 on the first rank and
+    0 on the others, so that one modular all-reduce of every value (`psum`)
+    leaves each value on every rank."""
+    mesh = sharded.active_mesh()
+    shares = [sharded.is_share(c, l) for c, l, _ in jobs]
+    psum = any(shares)
+    tws = [(1, 0, 0, 0), (0, 0, 0, 0)]  # entry 0: one, 1: zero
+    lmax, seq = {}, {}
+    for _, log_size, points in jobs:
+        for z in points:
+            lmax[z] = max(lmax.get(z, 0), log_size)
+    for z, l in lmax.items():
+        seq[z] = len(tws) + l  # the entry past the rows of z's longest sequence
+        tws += [tuple(int(v) for v in t) for t in point_eval_twiddles_host(z, l)]
+    rows = []
+    blk = part = warps = out = 0
+    for (coeffs, log_size, points), share in zip(jobs, shares):
+        k = int(coeffs.shape[0])
+        if k == 0:
+            continue
+        bits = log_size - (mesh.log_ws if share else 0)
+        if bits >= _PE_SEG_LOG:
+            nseg = 1 << (bits - _PE_SEG_LOG)
+            tasks = k * nseg
+        else:
+            nseg = 1
+            tasks = -(-k >> (_PE_SEG_LOG - bits))
+        for i in range(0, len(points), _PE_POINTS):
+            pts = points[i : i + _PE_POINTS]
+            row = [0] * _PE_ROW
+            row[0], row[1], row[2], row[3] = coeffs.data_ptr(), k, bits, len(pts)
+            for p, z in enumerate(pts):
+                # row j of this log size's twiddles (index bit j) is entry
+                # seq[z] - log_size + j
+                row[4 + p] = seq[z] - log_size
+                if share:
+                    row[6 + p] = len(tws)
+                    tws.append(_rank_factor(tws, row[4 + p], bits, log_size,
+                                            mesh.rank))
+                else:
+                    row[6 + p] = 1 if psum and mesh.rank else 0
+                row[8 + p] = out + p * 4 * k
+            n_blocks = -(-tasks // _PE_WARPS)
+            row[10:] = [part, blk, blk + n_blocks, warps, warps + len(pts) * k,
+                        tasks]
+            rows.append(row)
+            part += len(pts) * k * nseg
+            blk += n_blocks
+            warps += len(pts) * k
+            out += len(pts) * 4 * k
+    table = np.array(rows, dtype=np.int64).reshape(-1, _PE_ROW)
+    return (table, np.array(tws, dtype=np.int64), blk, part, warps, out, psum)
+
+
+def _rank_factor(tws, t0: int, local: int, log_size: int, rank: int):
+    """The product of the twiddle rows j (entry t0 + j) of the index bits
+    j >= local that are set in this rank's block index."""
+    from .fri import QONE, qscalar_mul
+
+    f = QONE
+    for j in range(local, log_size):
+        if (rank >> (j - local)) & 1:
+            f = qscalar_mul(f, tws[t0 + j])
+    return f
+
+
+def _eval_at_points_cuda(jobs, device) -> torch.Tensor:
+    table, tws, n_blocks, n_part, n_warps, n_out, psum = _point_eval_table(jobs)
+    out = torch.empty(n_out, dtype=torch.int64, device=device)
+    if n_out == 0:
+        return out
+    n_jobs = int(table.shape[0])
+    # the rows and entries reach the card in one copy that does not wait
+    host = torch.from_numpy(np.concatenate([table.reshape(-1), tws.reshape(-1)]))
+    part = torch.empty(4 * n_part, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        dev = host.pin_memory().to(device, non_blocking=True)
+        err = kernels.lib().cm_point_eval(
+            dev.data_ptr(), n_jobs, dev.data_ptr() + 8 * table.size,
+            part.data_ptr(), out.data_ptr(), n_blocks, n_warps, _PE_SEG_LOG,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    kernels.check(err, "point_eval")
+    kernels.count("point_eval", (n_jobs, n_warps))
+    return sharded.psum_mod(out) if psum else out

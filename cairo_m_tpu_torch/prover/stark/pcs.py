@@ -190,39 +190,31 @@ class CommitmentPhase:
         for _, r in self.roots():
             channel.mix_root(r)
 
-    def sample_dispatch(self, points_per_column):
-        """Queue the point evaluations for this phase; returns an opaque
-        (jobs, devs, n_cols) handle for `sample_finish`.  All columns of one
-        log_size in a phase share the same point list (the protocol
-        guarantees it): one stacked evaluation per (log, point)."""
-        jobs = {}
-        for ci, (l, pts) in enumerate(zip(self.trace_logs, points_per_column)):
-            for pi_, z in enumerate(pts):
-                jobs.setdefault((l, z), []).append((ci, pi_))
-        devs = []
-        for (l, z), lst in jobs.items():
-            coeffs = self.stacked_coeffs[l]
-            tws = fft.point_eval_twiddles_host(z, l)
-            v = fft.eval_at_qpoint_folds(coeffs, l, tws)
-            devs.append(torch.stack(v).reshape(-1))  # (4*k,)
-        return jobs, devs, len(points_per_column)
+    def sample_groups(self, points_per_column):
+        """-> [(log_size, points)]: every column of a log size is evaluated
+        at each point that a column of that size samples, in first-use
+        order (the protocol gives all of them the same list)."""
+        groups: dict[int, list] = {}
+        for l, pts in zip(self.trace_logs, points_per_column):
+            seen = groups.setdefault(l, [])
+            seen += [z for z in pts if z not in seen]
+        return list(groups.items())
 
-    def sample_finish(self, handle, flat: np.ndarray, off: int):
-        """Assemble sampled values from the (already pulled) flat array
-        starting at ``off``; returns (values, new offset)."""
-        jobs, devs, n_cols = handle
-        sizes = {}
-        for lst in jobs.values():
-            for ci, pi_ in lst:
-                sizes[ci] = max(sizes.get(ci, 0), pi_ + 1)
-        out = [[None] * sizes.get(ci, 0) for ci in range(n_cols)]
-        for (l, z), lst in jobs.items():
+    def sample_finish(self, points_per_column, groups, flat: np.ndarray,
+                      off: int):
+        """Assemble sampled values from the (already pulled) flat array of
+        `fft.eval_at_points` over ``groups`` starting at ``off``; returns
+        (values, new offset)."""
+        at = {}
+        for l, zs in groups:
             k = int(self.stacked_coeffs[l].shape[0])
-            vh = flat[off : off + 4 * k].reshape(4, k)
-            off += 4 * k
-            for ci, pi_ in lst:
-                _, pos = self.group_index[ci]
-                out[ci][pi_] = tuple(int(vh[j][pos]) for j in range(4))
+            for z in zs:
+                at[(l, z)] = flat[off : off + 4 * k].reshape(4, k)
+                off += 4 * k
+        out = []
+        for ci, pts in enumerate(points_per_column):
+            l, pos = self.group_index[ci]
+            out.append([tuple(int(v) for v in at[(l, z)][:, pos]) for z in pts])
         return out, off
 
 
@@ -312,21 +304,25 @@ class CommitmentSchemeProver:
                 "sample points don't cover every committed column "
                 f"({len(pts)} vs {len(phase.trace_logs)})"
             )
-        # 1. sample + mix — all phases' point evaluations queued first, then
-        # ONE device->host pull for everything
+        # 1. sample + mix — every phase's point evaluations in one call of
+        # the point-evaluation kernel, then ONE device->host pull
         with observe.span("sample", label="sample"):
             with observe.span("evaluate"):
-                handles = [
-                    phase.sample_dispatch(pts)
+                groups = [
+                    phase.sample_groups(pts)
                     for phase, pts in zip(self.phases, sample_points)
                 ]
-                all_devs = [d for h in handles for d in h[1]]
-            flat = observe.pull(torch.cat(all_devs)) if all_devs else np.zeros(0)
+                values = fft.eval_at_points([
+                    (phase.stacked_coeffs[l], l, zs)
+                    for phase, gs in zip(self.phases, groups)
+                    for l, zs in gs
+                ])
+            flat = observe.pull(values)
             with observe.span("finish"):
                 sampled = []
                 off = 0
-                for phase, h in zip(self.phases, handles):
-                    vals, off = phase.sample_finish(h, flat, off)
+                for phase, pts, gs in zip(self.phases, sample_points, groups):
+                    vals, off = phase.sample_finish(pts, gs, flat, off)
                     sampled.append(vals)
         with observe.span("alphas"):
             channel.mix_felts(

@@ -21,6 +21,8 @@ Run from the repository root on a machine with one CUDA card:
                                      # the chain at full depth
     python3 chip_smoke.py --wasm     # phases 1 and 14: WASM-compiled
                                      # programs against the JAX package
+    python3 chip_smoke.py --point-eval  # phases 1 and 15 at fib-100k,
+                                        # bench1k and fib(1M)
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -206,7 +208,15 @@ Phases (each raises on failure, so the script exits non-zero):
    size; (c) ``wasm``, ``prove --verify --device cuda`` and ``verify`` of
    ``memrw`` through the command line, in subprocesses that cannot import
    JAX, the file's segment equal to the production golden (the full run
-   runs (c) in phase 7).
+   runs (c) in phase 7);
+15. the point-evaluation kernel (``csrc/point_eval.cu``) at the sample step
+   of a real proof: the proof (after phase 5's, fib-100k) with its sample
+   step's jobs kept, one ``point_eval`` launch in it and its digest the
+   golden's; the kernel against the plain folds on the card on those jobs,
+   bit for bit; the kernel timed alone on a prebuilt table (and queued),
+   one wrapper call with its table, and the plain folds, beside the bytes
+   bound.  ``--point-eval`` runs it after a warm-up proof at fib-100k, the
+   SHA-256 example's ``bench1k`` and fibonacci(1,000,000).
 
 Launch counts are read per path: zeroed just before each path is driven
 and read just after (the segment, command-line and sharded paths count
@@ -245,7 +255,7 @@ from cairo_m_tpu_torch.prover.adapter.native_import import native_prover_input  
 from cairo_m_tpu_torch.prover.components.registry import ComponentSet  # noqa: E402
 from cairo_m_tpu_torch.prover.prove import prove_cairo_m  # noqa: E402
 from cairo_m_tpu_torch.prover.relations import Relations  # noqa: E402
-from cairo_m_tpu_torch.prover.stark import framework, merkle, wtape  # noqa: E402
+from cairo_m_tpu_torch.prover.stark import fft, framework, merkle, wtape  # noqa: E402
 from cairo_m_tpu_torch.prover.stark.air import logup_shift_scalar  # noqa: E402
 from cairo_m_tpu_torch.prover.verify import VerificationError, verify_cairo_m  # noqa: E402
 from cairo_m_tpu_torch.parallel.segments import prove_segments_multiprocess  # noqa: E402
@@ -2192,6 +2202,122 @@ def phase_four_cards(single_digest, single_peak, pi):
         raise AssertionError("phase 13 failed: " + "; ".join(failed))
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the point-evaluation kernel at the sample steps of real proofs
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def captured_point_jobs():
+    """Keep the jobs of the last `fft.eval_at_points` call made inside: the
+    sample step of the last proof, its stacks held alive."""
+    last = []
+    real = fft.eval_at_points
+
+    def spy(jobs):
+        last[:] = [list(jobs)]
+        return real(jobs)
+
+    fft.eval_at_points = spy
+    try:
+        yield last
+    finally:
+        fft.eval_at_points = real
+
+
+def point_eval_launcher(jobs):
+    """A function that launches the kernel on ``jobs``' table, built and
+    uploaded once: the kernel's time without the wrapper's host work."""
+    table, tws, n_blocks, n_part, n_warps, n_out, _ = fft._point_eval_table(jobs)
+    dev = torch.from_numpy(np.concatenate([table.reshape(-1), tws.reshape(-1)])).to(DEV)
+    part = torch.empty(4 * n_part, dtype=torch.int32, device=DEV)
+    out = torch.empty(n_out, dtype=torch.int64, device=DEV)
+
+    def launch():
+        err = kernels.lib().cm_point_eval(
+            dev.data_ptr(), int(table.shape[0]), dev.data_ptr() + 8 * table.size,
+            part.data_ptr(), out.data_ptr(), n_blocks, n_warps, fft._PE_SEG_LOG,
+            torch.cuda.current_stream().cuda_stream)
+        kernels.check(err, "point_eval")
+        return out
+
+    return launch
+
+
+def point_eval_bound(jobs):
+    """Each coefficient read once (8 bytes) for all of its job's points,
+    each value written once (4 int64 limbs); a 32x32->64 multiply-add a
+    limb and point (two INT32-pipe operations), the reductions deferred."""
+    coeffs = sum(int(c.numel()) for c, _, _ in jobs)
+    values = sum(int(c.shape[0]) * len(zs) for c, _, zs in jobs)
+    ops = 8 * sum(int(c.numel()) * len(zs) for c, _, zs in jobs)
+    return coeffs, values, bound(8 * coeffs + 32 * values, ops)
+
+
+def phase_point_eval(label, pi, want_digest, warm_up=False):
+    """Phase 15: a proof of ``pi`` at REGULAR_96_BITS (after a warm-up
+    proof if ``warm_up``) with its sample step's jobs kept: one
+    ``point_eval`` launch in the proof, its digest ``want_digest``; then the
+    kernel against the plain folds on the card on those jobs, bit for bit,
+    and both timed.  -> the kernel's row."""
+    cfg = config.REGULAR_96_BITS
+    if warm_up:
+        prove_cairo_m(pi, cfg)
+    with captured_point_jobs() as last:
+        kernels.reset_launches()
+        proof = prove_cairo_m(pi, cfg)
+        torch.cuda.synchronize()
+    n = kernels.launches["point_eval"]
+    digest = _digest(proof.to_json_obj())
+    del proof
+    log(f"  {label}: {n} point_eval launch(es) in the proof; proof sha256 {digest} "
+        f"({'equal to' if digest == want_digest else 'DIFFERENT from'} the golden)")
+    if n != 1 or digest != want_digest:
+        raise AssertionError(f"{label}: {n} point_eval launches, digest {digest}")
+    jobs = last[0]
+    got, call_ms = timed_call(lambda: fft.eval_at_points(jobs))
+    want, plain_ms = timed_call(lambda: fft._eval_at_points_plain(jobs))
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"{label}: point_eval differs from the plain folds")
+    launch = point_eval_launcher(jobs)
+    if not torch.equal(launch(), want):
+        raise AssertionError(f"{label}: point_eval (prebuilt table) differs from plain")
+    coeffs, values, (bound_ms, bound_by) = point_eval_bound(jobs)
+    row = {"max_abs_err": err, "ms": time_ms(launch), "dev_ms": time_ms(launch, queued=True),
+           "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "launches": n}
+    logs = sorted({(lg, int(c.shape[-1]).bit_length() - 1) for c, lg, _ in jobs})
+    log(f"  {label} sample step: {len(jobs)} jobs (log sizes "
+        f"{sorted({lg for lg, _ in logs})}, k {min(int(c.shape[0]) for c, _, _ in jobs)}-"
+        f"{max(int(c.shape[0]) for c, _, _ in jobs)}, "
+        f"{sum(len(zs) for _, _, zs in jobs)} (job, point) pairs), {values} values, "
+        f"{coeffs} coefficients read; max_abs_err 0; kernel {row['ms']:.4f} ms "
+        f"({row['dev_ms']:.4f} ms queued), one wrapper call with its table "
+        f"{call_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), plain folds "
+        f"{plain_ms:.4f} ms")
+    return row
+
+
+def phase_point_eval_cells():
+    """--point-eval: phase 15 at the sample steps of warm fib-100k,
+    SHA-256 bench1k and fibonacci(1,000,000) proofs."""
+    program = compile_cairo(FIB_SRC).program
+    rows = {}
+    pi = native_prover_input(program, "main", [100_000])
+    rows["fib-100k"] = phase_point_eval("fib-100k", pi, _golden(FIB100K_GOLDEN),
+                                        warm_up=True)
+    with open(os.path.join(REPO, SHA256_FILE)) as f:
+        sha = compile_cairo(f.read(), SHA256_FILE).program
+    pi = native_prover_input(sha, "bench1k", [])
+    want = witness_golden("sha256_bench1k", load_witnesses()["sha256_bench1k"])
+    rows["bench1k"] = phase_point_eval("sha256 bench1k", pi, want, warm_up=True)
+    pi = native_prover_input(program, "main", [FIB1M_ITERS])
+    rows["fib(1M)"] = phase_point_eval("fib(1M)", pi, _golden(FIB1M_GOLDEN),
+                                       warm_up=True)
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -2215,6 +2341,12 @@ def main():
         phase_fib1m(gen, compile_cairo(FIB_SRC).program, {})
         log(f"card: {card_line()}")
         log("stopping after phase 10")
+        return
+    if "--point-eval" in sys.argv[1:]:
+        phase("phase 15: the point-evaluation kernel at real sample steps")
+        phase_point_eval_cells()
+        log(f"card: {card_line()}")
+        log("stopping after phase 15")
         return
     if "--sha256" in sys.argv[1:]:
         gen = torch.Generator(device=DEV)
@@ -2371,6 +2503,9 @@ def main():
         f"(global-scratch kernel on the same plans: "
         f"{sum(r['launches'] * r['global_ms'] for r in table_b.values()):.4f} ms)")
 
+    phase("phase 15: the point-evaluation kernel at fib-100k's sample step")
+    table_e = phase_point_eval("fib-100k", pi, single_digest)
+
     phase("phase 5b: every AIR component, the witnesses of tests/golden/witnesses.json")
     paths["allops"], table_w = phase_witnesses(gen, load_witnesses())
 
@@ -2449,6 +2584,9 @@ def main():
         # the prover needs it today, so it is held to plain on a synthetic
         # plan (phase 3) and launches 0 times on the main path
         entry("wtape_run_plan_global", wtape_cu, wtape_tpu, synthetic),
+        # replaces no Pallas kernel: XLA fused the jitted folds of
+        # cairo_m_tpu/prover/stark/fft.py:270; timed on fib-100k's sample step
+        entry("point_eval", "cairo_m_tpu_torch/csrc/point_eval.cu", None, table_e),
     ]}
     log(f"timed shapes: blake2s K={BLAKE2S_MAIN[0]} n={BLAKE2S_MAIN[1]}; blake2s "
         f"pyramid over {PYRAMID_MAIN} leaf digests (all its launches); wtape "

@@ -26,7 +26,7 @@ from cairo_m_tpu_torch.prover.adapter.native_import import native_prover_input
 from cairo_m_tpu_torch.prover.components.registry import ComponentSet
 from cairo_m_tpu_torch.prover.prove import prove_cairo_m
 from cairo_m_tpu_torch.prover.relations import Relations
-from cairo_m_tpu_torch.prover.stark import framework, merkle, wtape
+from cairo_m_tpu_torch.prover.stark import fft, framework, merkle, wtape
 from cairo_m_tpu_torch.prover.stark.air import logup_shift_scalar
 from torch_port_helpers import (FIB_SRC, P, constant_free_plan, proof_json,
                                 random_wide_plan, wide_sum_plan)
@@ -175,6 +175,34 @@ def _random_rows(plan, n, seed, device):
     ).to(device)
 
 
+def _point(rng):
+    return tuple(tuple(int(v) for v in rng.integers(0, P, 4)) for _ in range(2))
+
+
+@pytest.mark.parametrize("seed, logs", [
+    (0, [1, 4, 5, 6, 11]), (1, [12, 13, 16]), (2, [3, 4, 9, 12, 20])])
+def test_point_eval_kernel_matches_plain(cuda_device, seed, logs):
+    """One launch for a table of stacks of every tiling (columns shorter
+    than a warp, whole columns a warp, segments of long ones), k from 1 to
+    over a thousand, one to three points a stack, points shared between
+    stacks: bit for bit the plain folds' values."""
+    rng = np.random.default_rng(seed)
+    points = [_point(rng) for _ in range(3)]
+    jobs = []
+    for log in logs:
+        k = int(rng.choice([1, 3, 100, 1392])) if log < 14 else 2
+        pts = [points[i] for i in rng.permutation(3)[: 1 + log % 3]]
+        jobs.append((torch.from_numpy(rng.integers(0, P, size=(k, 1 << log),
+                                                   dtype=np.int64)).to(cuda_device),
+                     log, pts))
+    before = kernels.launches["point_eval"]
+    got = fft.eval_at_points(jobs)
+    torch.cuda.synchronize()
+    assert kernels.launches["point_eval"] == before + 1
+    want = fft.eval_at_points([(c.cpu(), log, pts) for c, log, pts in jobs])
+    assert torch.equal(got.cpu(), want)
+
+
 @pytest.mark.parametrize("variant", ["smem", "global"])
 @pytest.mark.parametrize("seed, n", [(0, 1 << 12), (1, 16), (2, 1000), (3, 1 << 15)])
 def test_wtape_variants_match_plain_on_random_plans(cuda_device, seed, n, variant):
@@ -286,7 +314,7 @@ def test_kernels_match_plain_on_every_card(cards):
         assert {k: kernels.launches[k] - before[k] for k in before} == {
             "blake2s_leaves": 1,
             "blake2s_pyramid": blake2s.pyramid_launches(leaves.shape[1]),
-            "wtape_run_plan": 1, "wtape_run_plan_global": 1}
+            "wtape_run_plan": 1, "wtape_run_plan_global": 1, "point_eval": 0}
 
 
 def test_fib40_on_two_nccl_ranks_matches_reference(cards):
