@@ -23,8 +23,14 @@ and a traffic mix (``traffic/<name>.json``).  The run:
    read from a device trace of the window.  Each metric is read by
    ``metrics/<name>.py`` from the run's record.
 
+A configuration that states ``"job": "chain"`` makes every job a
+continuation chain instead (``chain.py``): one call of the port's
+``prove_segments_multiprocess``, one segment worker process a card of the
+cell.  A configuration without ``"job"`` runs the one-segment job above.
+
 The run fails, printing no result, without a card, with fewer cards than
-the cell asks for, or if JAX or the JAX package was loaded.
+the cell asks for, or if JAX or the JAX package was loaded, in this
+process or in a chain's segment workers.
 """
 
 from __future__ import annotations
@@ -73,6 +79,15 @@ def load_cell(bench: dict, workload: str):
     entry = next(c for c in bench["configs"] if c["name"] == cell["config"])
     config = json.loads((ROOT / entry["file"]).read_text())
     return cell, config, load_mix(cell["traffic"])
+
+
+def job_kind(config: dict) -> str:
+    """``segment`` (one ``prove_cairo_m`` a job; a configuration without
+    ``"job"``) or ``chain`` (one continuation chain a job)."""
+    kind = config.get("job", "segment")
+    if kind not in ("segment", "chain"):
+        raise SystemExit(f"configuration {config['name']}: unknown job {kind!r}")
+    return kind
 
 
 def cell_metrics(bench: dict, cell: dict, trace: bool) -> list:
@@ -224,8 +239,11 @@ def judge(config: dict, jobs: list, seed: int, n_verified: int = N_VERIFIED) -> 
             "reasons": reasons}
 
 
-def forbidden_modules() -> list:
-    return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+def forbidden_modules(names=None) -> list:
+    """The forbidden top-level names among ``names`` (module names;
+    default: this process's ``sys.modules``), compared whole."""
+    names = sys.modules if names is None else names
+    return sorted({m.split(".")[0] for m in names} & set(FORBIDDEN))
 
 
 # -- a run --
@@ -343,13 +361,24 @@ def main(argv=None) -> int:
             f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
         return 2
     log(f"card: {card_line()}")
-    res = run(cell, config, mix, cell_metrics(bench, cell, bool(a.trace)),
-              a.seed, a.seconds, bool(a.trace))
-    bad = forbidden_modules()
+    runner = run
+    if job_kind(config) == "chain":
+        from .chain import run_chain as runner
+    res = runner(cell, config, mix, cell_metrics(bench, cell, bool(a.trace)),
+                 a.seed, a.seconds, bool(a.trace))
+    return finish(res, torch.cuda.get_device_name(0), bool(a.trace))
+
+
+def finish(res: dict, kind: str, trace: bool) -> int:
+    """Print the run's result line, unless a forbidden module was loaded
+    in this process or in a segment worker (``res["worker_forbidden"]``):
+    then name it and print nothing.  -> the exit code."""
+    bad = [f"{m} (this process)" for m in forbidden_modules()]
+    bad += [f"{m} (a segment worker)" for m in res.get("worker_forbidden", [])]
     if bad:
-        log(f"loaded in this process: {', '.join(bad)}")
+        log(f"loaded: {', '.join(bad)}")
         return 3
-    line = result_line(res, torch.cuda.get_device_name(0), bool(a.trace))
+    line = result_line(res, kind, trace)
     for name, v in line["checks"].items():
         log(f"check {name}: {v['value']} (limit {v['limit']})")
     print(json.dumps(line), flush=True)
@@ -360,7 +389,7 @@ def result_line(res: dict, kind: str, trace: bool) -> dict:
     """The run's last line; the numbers compared, each with its limit,
     come last under ``checks``."""
     checks = {k: v for k, v in res["checks"].items() if isinstance(v, dict)}
-    device = {"platform": "gpu", "kind": kind, "count": 1,
+    device = {"platform": "gpu", "kind": kind, "count": res.get("count", 1),
               "memory_peak_bytes": int(res["peak_bytes"])}
     if trace:
         device.update(res["device_extra"])

@@ -35,10 +35,11 @@ def test_names_units_and_keys():
         names.append(c["name"])
     for w in BENCH["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
         assert w["config"] in [c["name"] for c in BENCH["configs"]]
         assert (ROOT / "benchmark" / "traffic" / f"{w['traffic']}.json").is_file()
         names += [w["name"], w["traffic"]]
+    assert sum(w["chips"] == 4 for w in BENCH["workloads"]) <= max(1, len(BENCH["workloads"]) // 4)
     for kind in ("end_to_end", "per_layer"):
         for m in BENCH[kind]:
             assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
@@ -53,6 +54,16 @@ def test_names_units_and_keys():
     for n in names:
         assert NAME.match(n), n
     assert len(ROOT.joinpath("BENCHMARK.json").read_bytes()) <= 64 * 1024
+
+
+def test_every_cell_reports_what_its_layers_move():
+    """Each cell: setup_s and another end-to-end metric, a per-layer
+    metric, and every per-layer metric moves one the cell reports."""
+    for w in BENCH["workloads"]:
+        e2e = [m["name"] for m in R.cell_metrics(BENCH, w, False)]
+        assert "setup_s" in e2e and len(e2e) >= 2, w["name"]
+        layers = R.cell_metrics(BENCH, w, True)
+        assert layers and all(m["moves"] in e2e for m in layers), w["name"]
 
 
 def test_configs_match_their_entries():

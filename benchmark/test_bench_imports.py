@@ -25,7 +25,8 @@ def _loaded(mods):
 
 
 def test_the_harness_loads_no_jax():
-    loaded = _loaded(["benchmark.run", "benchmark.control", "benchmark.trace",
+    loaded = _loaded(["benchmark.run", "benchmark.control", "benchmark.trace", "benchmark.chain",
+                      "cairo_m_tpu_torch.parallel.segments",
                       "benchmark.yardstick", "cairo_m_tpu_torch.prover.prove",
                       "cairo_m_tpu_torch.prover.verify", "cairo_m_tpu_torch.compiler",
                       "cairo_m_tpu_torch.prover.adapter.native_import"])
@@ -37,7 +38,7 @@ def test_the_reference_loads_neither_package():
     out = subprocess.run(
         [sys.executable, "-c",
          "import sys, benchmark.reference.verify, benchmark.reference.answers.fib_loop, "
-         "benchmark.reference.answers.sha256_1k; print(sorted({m.split('.')[0] for m in sys.modules}))"],
+         "benchmark.reference.answers.sha256_1k, benchmark.reference.answers.fib_chain; print(sorted({m.split('.')[0] for m in sys.modules}))"],
         cwd=ROOT, capture_output=True, text=True, timeout=300, check=True)
     loaded = set(eval(out.stdout.strip().splitlines()[-1]))
     assert not loaded & {"jax", "jaxlib", "flax", "cairo_m_tpu", "cairo_m_tpu_torch", "torch"}

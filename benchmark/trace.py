@@ -71,6 +71,18 @@ def union_ns(intervals) -> int:
     return busy
 
 
+def merged_ns(intervals) -> list:
+    """The union of (start, end) intervals as sorted disjoint [start, end]
+    pairs: what a segment worker keeps of its trace."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
 def idle_gaps(events, t0: int, t1: int):
     """[(start, end)] of the window's stretches with no device activity."""
     gaps, cur = [], t0
