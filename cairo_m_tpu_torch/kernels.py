@@ -33,7 +33,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 launches = {"blake2s_leaves": 0, "blake2s_pyramid": 0, "wtape_run_plan": 0,
-            "wtape_run_plan_global": 0, "point_eval": 0}
+            "wtape_run_plan_global": 0, "point_eval": 0, "poseidon2_witness": 0}
 # launches by (kernel name, *shape): which shapes a run sent to each kernel
 launch_shapes: dict = {}
 
@@ -142,6 +142,8 @@ def lib():
             handle.cm_wtape_run_global.restype = ctypes.c_int
             handle.cm_point_eval.argtypes = [vp, i32, vp, vp, vp, i64, i64, i32, vp]
             handle.cm_point_eval.restype = ctypes.c_int
+            handle.cm_poseidon2_witness.argtypes = [vp, i64, i64, vp, vp, vp]
+            handle.cm_poseidon2_witness.restype = ctypes.c_int
             _lib = handle
         return _lib
 

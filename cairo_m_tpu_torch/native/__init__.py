@@ -2,9 +2,11 @@
 
 `run_raw` / `run_resume_raw` execute and witness-prepare in one native
 pass (the Python VM + adapter is the host-side bottleneck for 1M+-cycle
-traces).  The shared library is built from ``vm_core.cpp`` at first use
-into ``_build/`` beside the CUDA kernels, named by a hash of source and
-flags; a failed build raises with the compiler's output.  No binary is
+traces); `poseidon2_hash2` is the batched two-to-one Poseidon2 hash of the
+adapter's Merkle trees, on the host's cores.  The shared library is built
+from ``vm_core.cpp`` at first use into ``_build/`` beside the CUDA kernels,
+named by a hash of source and flags; a failed build raises with the
+compiler's output.  No binary is
 committed and nothing here gives way to the Python VM.
 """
 
@@ -24,7 +26,7 @@ SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "vm_core.cpp")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
 )
-CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 _lock = threading.Lock()
 _LIB = None
@@ -101,6 +103,10 @@ def _bind(lib):
         )
         getattr(lib, name).argtypes = [ctypes.c_void_p]
     lib.cm_free.argtypes = [ctypes.c_void_p]
+    lib.cm_poseidon2_hash2.restype = None
+    lib.cm_poseidon2_hash2.argtypes = [
+        u32p, u32p, u32p, ctypes.c_uint64, u32p, u32p, u32p, ctypes.c_uint32,
+    ]
     return lib
 
 
@@ -218,4 +224,26 @@ def _collect(lib, h, copy):
                 freed.append(True)
                 lib.cm_free(h)
         out["free"] = _free
+    return out
+
+
+def _u32(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32))
+
+
+def poseidon2_hash2(left, right, params) -> np.ndarray:
+    """``hash2_np(left, right, params)`` in the native core: (n,) uint32
+    M31 values -> (n,) uint32 digests, the batch split over the cores this
+    process may run on."""
+    lib = _load()
+    lo = np.ascontiguousarray(left, dtype=np.uint32)
+    ri = np.ascontiguousarray(right, dtype=np.uint32)
+    if lo.shape != ri.shape or lo.ndim != 1:
+        raise ValueError(f"poseidon2_hash2 wants two (n,) arrays: {lo.shape}, {ri.shape}")
+    ext = np.ascontiguousarray(params.external_rc, dtype=np.uint32)
+    irc = np.ascontiguousarray(params.internal_rc, dtype=np.uint32)
+    diag = np.ascontiguousarray(params.internal_diag, dtype=np.uint32)
+    out = np.empty_like(lo)
+    lib.cm_poseidon2_hash2(_u32(lo), _u32(ri), _u32(out), len(lo), _u32(ext),
+                           _u32(irc), _u32(diag), len(os.sched_getaffinity(0)))
     return out

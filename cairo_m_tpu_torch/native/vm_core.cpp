@@ -16,6 +16,7 @@
 #include <cstring>
 #include <mutex>
 #include <new>
+#include <thread>
 #include <unordered_map>
 #include <vector>
 
@@ -641,4 +642,106 @@ void cm_free(void* h) {
   }
   delete drop;
 }
+}
+
+// ---------------------------------------------------------------------------
+// Poseidon2-M31, T = 16, 8 full + 14 partial rounds: the two-to-one hash of
+// the adapter's partial Merkle trees (hash/poseidon2.py: hash(l, r) is
+// permute([l, r, 0, .., 0])[0]), one batch a tree level.  The round
+// constants come from the caller (the active instance,
+// hash/poseidon2_params.py): ext_rc (8, 16), int_rc (14,), diag (16,).
+
+namespace {
+
+constexpr int PT = 16;
+constexpr int P_FULL = 8;
+constexpr int P_PARTIAL = 14;
+
+inline uint32_t padd(uint32_t a, uint32_t b) {
+  uint32_t s = a + b;  // both < 2^31 - 1: no wrap
+  return s >= (uint32_t)P ? s - (uint32_t)P : s;
+}
+
+inline uint32_t pmul(uint32_t a, uint32_t b) { return (uint32_t)fmul(a, b); }
+
+inline uint32_t psbox(uint32_t x) {
+  const uint32_t x2 = pmul(x, x);
+  return pmul(pmul(x2, x2), x);
+}
+
+// M_E = circ(2 M4, M4, M4, M4), M4 as in eprint 2023/323 section 5.1
+inline void p2_external(uint32_t* s) {
+  for (int g = 0; g < 4; ++g) {
+    uint32_t* x = s + 4 * g;
+    const uint32_t t0 = padd(x[0], x[1]);
+    const uint32_t t02 = padd(t0, t0);
+    const uint32_t t1 = padd(x[2], x[3]);
+    const uint32_t t12 = padd(t1, t1);
+    const uint32_t t2 = padd(padd(x[1], x[1]), t1);
+    const uint32_t t3 = padd(padd(x[3], x[3]), t0);
+    const uint32_t t4 = padd(padd(t12, t12), t3);
+    const uint32_t t5 = padd(padd(t02, t02), t2);
+    x[0] = padd(t3, t5);
+    x[1] = t5;
+    x[2] = padd(t2, t4);
+    x[3] = t4;
+  }
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t c = padd(padd(s[j], s[j + 4]), padd(s[j + 8], s[j + 12]));
+    for (int g = 0; g < 4; ++g) s[4 * g + j] = padd(s[4 * g + j], c);
+  }
+}
+
+void p2_permute(uint32_t* s, const uint32_t* ext_rc, const uint32_t* int_rc,
+                const uint32_t* diag) {
+  p2_external(s);
+  for (int r = 0; r < P_FULL; ++r) {
+    if (r == P_FULL / 2) {
+      for (int k = 0; k < P_PARTIAL; ++k) {
+        s[0] = psbox(padd(s[0], int_rc[k]));
+        uint32_t total = s[0];
+        for (int i = 1; i < PT; ++i) total = padd(total, s[i]);
+        for (int i = 0; i < PT; ++i) s[i] = padd(pmul(s[i], diag[i]), total);
+      }
+    }
+    for (int i = 0; i < PT; ++i) s[i] = psbox(padd(s[i], ext_rc[r * PT + i]));
+    p2_external(s);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// out[i] = hash(left[i], right[i]) for i < n, on up to n_threads threads.
+void cm_poseidon2_hash2(const uint32_t* left, const uint32_t* right,
+                        uint32_t* out, uint64_t n, const uint32_t* ext_rc,
+                        const uint32_t* int_rc, const uint32_t* diag,
+                        uint32_t n_threads) {
+  auto work = [&](uint64_t lo, uint64_t hi) {
+    for (uint64_t i = lo; i < hi; ++i) {
+      uint32_t s[PT] = {left[i], right[i]};
+      p2_permute(s, ext_rc, int_rc, diag);
+      out[i] = s[0];
+    }
+  };
+  // below a few thousand hashes a thread costs more than it saves
+  const uint64_t per = 4096;
+  uint64_t k = (n + per - 1) / per;
+  if (k > n_threads) k = n_threads;
+  if (k <= 1) {
+    work(0, n);
+    return;
+  }
+  std::vector<std::thread> pool;
+  pool.reserve(k - 1);
+  const uint64_t step = (n + k - 1) / k;
+  for (uint64_t t = 1; t < k; ++t) {
+    const uint64_t lo = t * step, hi = lo + step < n ? lo + step : n;
+    if (lo < hi) pool.emplace_back(work, lo, hi);
+  }
+  work(0, step < n ? step : n);
+  for (auto& th : pool) th.join();
+}
+
 }

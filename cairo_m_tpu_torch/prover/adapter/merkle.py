@@ -5,7 +5,10 @@ Port of `crates/prover/src/adapter/merkle.rs`: QM31 cell at address N becomes
 are built, with per-depth default hashes for missing siblings (multiplicity
 0 "intermediate" nodes); leaves have multiplicity 1, or 2 for public
 addresses (the public data consumes them too).  Each level is one batched
-Poseidon2 call (NumPy host path; the Poseidon2 *AIR* re-proves every hash).
+Poseidon2 call in the native core (`native.poseidon2_hash2`, the twin of
+`hash2_np`; the Poseidon2 *AIR* re-proves every hash).  A tree is one
+``merkle_tree`` span (``tree``, ``nodes``) of the active recorder, and its
+hashes add to the counter ``poseidon2_hashes``.
 
 Node arrays (one dict per tree, struct-of-arrays):
   index (left child), depth, left_value, right_value, parent_value,
@@ -16,13 +19,24 @@ from __future__ import annotations
 
 import numpy as np
 
-from ...hash.poseidon2 import TREE_HEIGHT, default_hashes, hash2_np
+from ... import native
+from ...hash.poseidon2 import TREE_HEIGHT, active_params, default_hashes
+from .. import observe
 
 P = (1 << 31) - 1
 
 
 def build_partial_merkle_tree(memory: dict, tree_type: str, public_address_ranges):
     """memory: addr -> (value4, clock, mult).  Returns (nodes dict, root)."""
+    with observe.span("merkle_tree", tree=tree_type) as sp:
+        nodes, root = _build(memory, tree_type, public_address_ranges)
+        n = len(nodes["index"])
+        observe.count("poseidon2_hashes", n)
+        sp.set(nodes=n)
+    return nodes, root
+
+
+def _build(memory: dict, tree_type: str, public_address_ranges):
     if not memory:
         empty = {
             k: np.zeros(0, dtype=np.uint32)
@@ -39,7 +53,8 @@ def build_partial_merkle_tree(memory: dict, tree_type: str, public_address_range
         }
         return empty, None
 
-    defaults = default_hashes()
+    params = active_params()
+    defaults = default_hashes(params)
     addrs = np.array(sorted(memory), dtype=np.int64)
     vals = np.array([memory[a][0] for a in addrs], dtype=np.uint32)  # (n, 4)
 
@@ -89,7 +104,7 @@ def build_partial_merkle_tree(memory: dict, tree_type: str, public_address_range
 
         lval, lmult = lookup(left_idx)
         rval, rmult = lookup(right_idx)
-        pval = hash2_np(lval, rval)
+        pval = native.poseidon2_hash2(lval, rval, params)
         out["index"].append(left_idx.astype(np.uint32))
         out["depth"].append(np.full(len(left_idx), depth, dtype=np.uint32))
         out["left_value"].append(lval)

@@ -3,17 +3,21 @@ poseidon2, range checks, bitwise.
 
 Column layouts and constraint/lookup structure follow the reference
 components one-to-one (SURVEY.md §2.5; per-file docs cited inline).  Each
-component builds its trace rows as NumPy arrays in row order; constraints
-live in ``evaluate`` (mode-polymorphic, see stark/air.py).
+component builds its trace rows as NumPy arrays in row order, but
+``poseidon2``, whose columns are made as a torch stack on the prover's
+device (`poseidon2_witness`).  Constraints live in ``evaluate``
+(mode-polymorphic, see stark/air.py).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ...field import m31
 from ...hash.poseidon2 import TREE_HEIGHT
 from ...hash.poseidon2_params import FULL_ROUNDS, PARTIAL_ROUNDS, T, active_params
+from .. import observe
 from ..adapter.adapter import rc_limit
 from ..stark.air import Component
 
@@ -238,6 +242,104 @@ def _sym_internal_matrix(state, diag):
     return [state[i] * int(diag[i]) + total for i in range(T)]
 
 
+def poseidon2_witness(states, rows: int, params=None):
+    """The ``poseidon2`` component's (443, rows) int64 trace stack on the
+    device of ``states``, a contiguous (n, 16) int32 tensor of input
+    states, n <= rows; rows n.. hash the zero state with enabler 0, as
+    `Poseidon2Component.write_trace` pads.  A card runs
+    ``csrc/poseidon2.cu`` (one launch); the CPU the plain torch rounds."""
+    params = params or active_params()
+    n = int(states.shape[0])
+    if states.dim() != 2 or states.shape[1] != T or states.dtype != torch.int32:
+        raise ValueError(f"poseidon2_witness wants (n, {T}) int32 states, got "
+                         f"{tuple(states.shape)} {states.dtype}")
+    if not states.is_contiguous() or n > rows:
+        raise ValueError(f"poseidon2_witness: {n} contiguous states for {rows} rows")
+    if states.device.type == "cpu":
+        return poseidon2_witness_plain(states, rows, params)
+    if states.device.type != "cuda":
+        raise ValueError(f"poseidon2_witness: unsupported device {states.device}")
+    return _poseidon2_witness_cuda(states, rows, params)
+
+
+def poseidon2_witness_plain(states, rows: int, params):
+    """Plain torch version of `poseidon2_witness`: the enabler, the state,
+    then a full round's sq1, sq2 and out (16 columns each), a partial
+    round's sq1, sq2 and sbox, as whole-column M31 ops."""
+    n = int(states.shape[0])
+    full = torch.zeros((rows, T), dtype=torch.int64, device=states.device)
+    full[:n] = states.long()
+    enabler = torch.zeros(rows, dtype=torch.int64, device=states.device)
+    enabler[:n] = 1
+    add, mul = m31.add, m31.mul
+    state = [full[:, i].contiguous() for i in range(T)]
+    cols = [enabler] + state
+
+    def ext_matrix(st):
+        out = list(st)
+        for i in range(4):
+            x = out[4 * i : 4 * i + 4]
+            t0 = add(x[0], x[1])
+            t02 = add(t0, t0)
+            t1 = add(x[2], x[3])
+            t12 = add(t1, t1)
+            t2 = add(add(x[1], x[1]), t1)
+            t3 = add(add(x[3], x[3]), t0)
+            t4 = add(add(t12, t12), t3)
+            t5 = add(add(t02, t02), t2)
+            out[4 * i : 4 * i + 4] = [add(t3, t5), t5, add(t2, t4), t4]
+        for j in range(4):
+            s = add(add(out[j], out[j + 4]), add(out[j + 8], out[j + 12]))
+            for i in range(4):
+                out[4 * i + j] = add(out[4 * i + j], s)
+        return out
+
+    state = ext_matrix(state)
+    for half in range(2):
+        for r in range(FULL_ROUNDS // 2):
+            rc = params.external_rc[half * (FULL_ROUNDS // 2) + r]
+            state = [add(state[i], int(rc[i])) for i in range(T)]
+            pre = state
+            sq1 = [mul(x, x) for x in state]
+            cols.extend(sq1)
+            sq2 = [mul(x, x) for x in sq1]
+            cols.extend(sq2)
+            state = ext_matrix([mul(sq2[i], pre[i]) for i in range(T)])
+            cols.extend(state)
+        if half == 0:
+            for r in range(PARTIAL_ROUNDS):
+                s0 = add(state[0], int(params.internal_rc[r]))
+                sq1 = mul(s0, s0)
+                sq2 = mul(sq1, sq1)
+                sbox = mul(sq2, s0)
+                cols += [sq1, sq2, sbox]
+                state = [sbox] + state[1:]
+                total = state[0]
+                for x in state[1:]:
+                    total = add(total, x)
+                state = [add(mul(state[i], int(params.internal_diag[i])), total)
+                         for i in range(T)]
+    return torch.stack(cols)
+
+
+def _poseidon2_witness_cuda(states, rows: int, params):
+    from ... import kernels
+
+    consts = np.ascontiguousarray(np.concatenate([
+        np.asarray(params.external_rc, np.uint32).reshape(-1),
+        np.asarray(params.internal_rc, np.uint32),
+        np.asarray(params.internal_diag, np.uint32)]))
+    out = torch.empty((Poseidon2Component.n_trace_cols, rows), dtype=torch.int64,
+                      device=states.device)
+    with torch.cuda.device(states.device):
+        err = kernels.lib().cm_poseidon2_witness(
+            states.data_ptr(), int(states.shape[0]), rows, consts.ctypes.data,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, "poseidon2_witness")
+    kernels.count("poseidon2_witness", (rows,))
+    return out
+
+
 class Poseidon2Component(Component):
     """components/poseidon2.rs — 443 cols; proves every Merkle hash.
 
@@ -258,74 +360,36 @@ class Poseidon2Component(Component):
     def n_lookups(self):
         return 2
 
-    def write_trace(self, prover_input):
+    def write_trace(self, prover_input, device="cpu"):
+        """The columns made on ``device`` from the input states
+        (`poseidon2_witness`: ``csrc/poseidon2.cu`` on a card, the plain
+        torch rounds on the CPU): ``device_stack`` holds them in row order
+        (under a row mesh, this rank's share in FFT order, as the uploads
+        are), and on the CPU outside a mesh ``trace_rows`` too, as host
+        columns.  One ``poseidon2_witness`` phase span (``rows``), the
+        device synced at its end."""
+        from ...parallel.sharded import active_mesh, maybe_shard
+        from ..stark import domain
+
         inputs = prover_input.poseidon2_inputs  # (n, 16)
         n = len(inputs)
         size = _pad_len(n)
-        states = np.zeros((size, T), dtype=np.uint32)
-        if n:
-            states[:n] = inputs
-        cols = [enabler_col(n, size)]
-        add, mul = m31.add_np, m31.mul_np
-        state = [states[:, i].copy() for i in range(T)]
-        for s in state:
-            cols.append(s)
-
-        def ext_matrix(st):
-            out = list(st)
-            for i in range(4):
-                x = out[4 * i : 4 * i + 4]
-                t0 = add(x[0], x[1])
-                t02 = add(t0, t0)
-                t1 = add(x[2], x[3])
-                t12 = add(t1, t1)
-                t2 = add(add(x[1], x[1]), t1)
-                t3 = add(add(x[3], x[3]), t0)
-                t4 = add(add(t12, t12), t3)
-                t5 = add(add(t02, t02), t2)
-                out[4 * i : 4 * i + 4] = [add(t3, t5), t5, add(t2, t4), t4]
-            for j in range(4):
-                s = add(add(out[j], out[j + 4]), add(out[j + 8], out[j + 12]))
-                for i in range(4):
-                    out[4 * i + j] = add(out[4 * i + j], s)
-            return out
-
-        prm = self.params
-        state = ext_matrix(state)
-        for half in range(2):
-            for r in range(FULL_ROUNDS // 2):
-                rc = prm.external_rc[half * (FULL_ROUNDS // 2) + r]
-                state = [add(state[i], np.uint32(rc[i])) for i in range(T)]
-                pre = state
-                sq1 = [mul(s, s) for s in state]
-                cols.extend(sq1)
-                sq2 = [mul(s, s) for s in sq1]
-                cols.extend(sq2)
-                state = [mul(sq2[i], pre[i]) for i in range(T)]
-                state = ext_matrix(state)
-                cols.extend(state)
-            if half == 0:
-                for r in range(PARTIAL_ROUNDS):
-                    s0 = add(state[0], np.uint32(prm.internal_rc[r]))
-                    sq1 = mul(s0, s0)
-                    cols.append(sq1)
-                    sq2 = mul(sq1, sq1)
-                    cols.append(sq2)
-                    sbox = mul(sq2, s0)
-                    cols.append(sbox)
-                    state = [sbox] + state[1:]
-                    total = state[0]
-                    for s in state[1:]:
-                        total = add(total, s)
-                    state = [
-                        add(mul(state[i], np.uint32(prm.internal_diag[i])), total)
-                        for i in range(T)
-                    ]
-        assert len(cols) == self.n_trace_cols, (len(cols), self.n_trace_cols)
+        with observe.phase("poseidon2_witness", rows=size):
+            states = observe.push(
+                np.ascontiguousarray(inputs, dtype=np.uint32).reshape(n, T)
+                .view(np.int32), device)
+            stack = poseidon2_witness(states, size, self.params)
+            mesh = active_mesh()
+            if mesh is not None:
+                stack = maybe_shard(domain.to_fft_order(stack)).contiguous()
+            observe.sync(device)
         self.log_size = size.bit_length() - 1
         self.non_padded_length = n
         self.zero_witness = n == 0
-        self.trace_rows = cols
+        self.trace_rows = (
+            list(stack.numpy().astype(np.uint32))
+            if stack.device.type == "cpu" and mesh is None else None)
+        self.device_stack = None if self.zero_witness else stack
         return self
 
     def evaluate(self, ev):

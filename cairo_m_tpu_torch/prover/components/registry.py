@@ -99,7 +99,8 @@ class ComponentSet:
 
     # -- witness generation --
 
-    def write_traces(self, prover_input, on_component=None, table_counter=None):
+    def write_traces(self, prover_input, on_component=None, table_counter=None,
+                     device="cpu"):
         """Generate all witness traces.  ``on_component(comp)`` fires as soon
         as a component's rows exist — the prover uses it to start that
         component's (async) H2D upload while later components' witnesses are
@@ -110,13 +111,20 @@ class ComponentSet:
         ``table_counter`` (framework.TableCounter, single-device path):
         multiplicity histograms run as device scatter-adds over the uploaded
         stacks — the caller's ``on_component`` feeds the counter — and the
-        host entry re-derivation below is skipped entirely."""
+        host entry re-derivation below is skipped entirely.
+
+        ``device``: the ``poseidon2`` component's columns are made there
+        (`Poseidon2Component.write_trace`: ``device_stack``; host rows
+        only on the CPU)."""
         non_table = [
             self.memory, self.merkle, self.clock_update, self.poseidon2,
         ] + self.opcodes
         for comp in non_table:
             with observe.span("witness", component=comp.name):
-                comp.write_trace(prover_input)
+                if comp is self.poseidon2:
+                    comp.write_trace(prover_input, device)
+                else:
+                    comp.write_trace(prover_input)
             if on_component is not None:
                 on_component(comp)
         if table_counter is not None:

@@ -103,6 +103,10 @@ class Span:
             rec._close(self)
         return False
 
+    def set(self, **attrs):
+        """Add attributes known only once the span's work is done."""
+        self.attrs.update(attrs)
+
     @property
     def seconds(self) -> float:
         return (self.end - self.start) / 1e9
@@ -120,6 +124,9 @@ class _NoSpan:
 
     def __exit__(self, *exc):
         return False
+
+    def set(self, **attrs):
+        pass
 
 
 _NO_SPAN = _NoSpan()

@@ -174,10 +174,11 @@ def build_sample_points(comps: ComponentSet, z, z_prevs, pre_owners):
     return [pre_points, trace_points, inter_points, comp_points]
 
 
-def _interaction_traces(comps, trace_stacks, device, mesh, to_fft, observer):
+def _interaction_traces(comps, trace_stacks, device, mesh, observer):
     """-> (claimed sum of each component, the interaction phase's
-    (log size, stacked limb columns) entries): one `dispatch` span a live
-    component, one pull of every sum."""
+    (log size, stacked limb columns) entries, row order, or under a mesh
+    this rank's FFT-order share): one `dispatch` span a live component,
+    one pull of every sum."""
     claimed_dev = []
     inter_entries = []
     zero_claims = set()
@@ -218,7 +219,7 @@ def _interaction_traces(comps, trace_stacks, device, mesh, to_fft, observer):
         if observer is not None:
             observer.end("interaction", comp, stacked)
         claimed_dev.append(claimed)
-        inter_entries.append((comp.log_size, to_fft(stacked)))
+        inter_entries.append((comp.log_size, stacked))
     # one batched device->host pull for every non-zero component's sum
     claimed_np = (
         observe.pull(torch.stack(claimed_dev))
@@ -250,8 +251,10 @@ def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
     component profile (`cairo_m_tpu_torch.profile components`).
 
     ``timing``: a dict this fills with the seconds of the phases' spans
-    (``trace``, ``interaction``, ``composition``, ``pcs``, ``total``; under
-    the stwo framing ``host_trees``, its ``stwo_host_tree`` spans).  The
+    (``trace``, ``interaction``, ``composition``, ``pcs``, ``total``;
+    ``poseidon2_witness``, inside ``trace``: the ``poseidon2`` component's
+    columns made on the device; under the stwo framing ``host_trees``, its
+    ``stwo_host_tree`` spans).  The
     spans go to the active recorder, if any (`observe`); the debug
     switches print from them."""
     device = resolve_device(device)
@@ -279,11 +282,14 @@ def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
 
             def _upload(comp):
                 dev = getattr(comp, "device_stack", None)
-                if comp.trace_rows is None:
-                    if dev is not None:
-                        uploaded[id(comp)] = dev
+                if dev is not None:
+                    # a table's multiplicities, or columns made on the device
+                    uploaded[id(comp)] = dev
+                    if comp is comps.poseidon2:
+                        with observe.span("count", component=comp.name):
+                            counter.add(comp, dev)
                     return
-                if comp.zero_witness:
+                if comp.trace_rows is None or comp.zero_witness:
                     return
                 with observe.span("upload", component=comp.name):
                     if mesh is None:
@@ -298,7 +304,8 @@ def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
                     "write_traces (host, uploads pipelined; upload "
                     "{upload:.2f}s count {count:.2f}s)")):
                 comps.write_traces(
-                    prover_input, on_component=_upload, table_counter=counter
+                    prover_input, on_component=_upload, table_counter=counter,
+                    device=device,
                 )
             scheme = pcs.CommitmentSchemeProver(channel, config)
 
@@ -321,11 +328,10 @@ def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
                     else uploaded[id(comp)]
                     for comp in comps.all
                 ]
+                # row order, taken to FFT order a group at a time
                 scheme.commit(
-                    [
-                        (comp.log_size, st if comp.zero_witness else to_fft(st))
-                        for comp, st in zip(comps.all, trace_stacks)
-                    ]
+                    [(comp.log_size, st) for comp, st in zip(comps.all, trace_stacks)],
+                    prepare=to_fft,
                 )
 
         with observe.phase("interaction") as p_inter:
@@ -337,10 +343,15 @@ def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
             relations.draw(channel)
             with observe.span("interaction_traces", label="interaction traces"):
                 claimed_sums, inter_entries = _interaction_traces(
-                    comps, trace_stacks, device, mesh, to_fft, observer)
+                    comps, trace_stacks, device, mesh, observer)
+            # the row-order trace is read no more: the phases hold its LDE
+            del trace_stacks, uploaded
+            for comp in comps.all:
+                comp.device_stack = None
             channel.mix_felts(claimed_sums)
             with observe.span("commit", phase=2, label="phase2 commit"):
-                scheme.commit(inter_entries)
+                scheme.commit(inter_entries, prepare=to_fft)
+            del inter_entries
 
         with observe.phase("composition") as p_comp:
             composition_coeff = channel.draw_felt()
@@ -369,6 +380,9 @@ def prove_cairo_m(prover_input, config=REGULAR_96_BITS, timing=None, *,
         timing.update(
             trace=p_trace.seconds, interaction=p_inter.seconds,
             composition=p_comp.seconds, pcs=p_pcs.seconds, total=root.seconds,
+            poseidon2_witness=sum(
+                s.seconds for s in rec.spans
+                if s.name == "poseidon2_witness" and s.root == root.id),
         )
         if config.framing == "stwo":
             # inside the phases above: host stwo tree builds + decommit

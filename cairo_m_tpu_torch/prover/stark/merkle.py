@@ -86,6 +86,8 @@ class MerkleTree:
         stacked = columns
         n_cols, n = int(stacked.shape[0]), int(stacked.shape[1])
         self.columns = stacked
+        self.n_cols = n_cols
+        self.fft_columns = None  # see `open_from_fft_order`
         self.log_size = n.bit_length() - 1
         assert 1 << self.log_size == n
         # (commit block, log of the block) of a tree split over a row mesh
@@ -131,6 +133,25 @@ class MerkleTree:
             self.finish_host_shared(observe.pull(sharded.all_gather(self.top_dev)))
         else:
             self.finish_host(observe.pull(self.top_dev))
+
+    def open_from_fft_order(self, ext):
+        """Read the opened values from ``ext``, the device columns in FFT
+        order (commit order is its bit reversal), and drop the hashed
+        commit-order copy.  A tree split over a row mesh keeps its block."""
+        if self.levels and self.share is None:
+            self.fft_columns, self.columns = ext, None
+
+    def opened_values(self, positions) -> torch.Tensor:
+        """The columns at commit-order ``positions`` (sorted), (n_cols,
+        len(positions)) flattened, on the tree's device."""
+        cols = self.columns
+        if cols is None:
+            cols = self.fft_columns
+            log = self.log_size
+            positions = [int(format(p, f"0{log}b")[::-1], 2) if log else p
+                         for p in positions]
+        pos = observe.push(np.asarray(positions, np.int64), cols.device)
+        return cols.index_select(1, pos).reshape(-1)
 
     def finish_host(self, top_words: np.ndarray):
         """Mirror the upper levels on the host from the pulled `top_dev`
@@ -206,16 +227,15 @@ class DecommitPlan:
 
     def __init__(self, tree: MerkleTree, positions):
         self.positions = sorted(set(int(p) for p in positions))
-        self.n_cols = int(tree.columns.shape[0])
+        self.n_cols = tree.n_cols
         host_tree = not tree.levels
         if host_tree:
             parts = [np.take(tree.columns, self.positions, axis=1).reshape(-1)]
         elif tree.share is not None:
             parts = [self._owned_values(tree)]
         else:
-            dev = tree.columns.device
-            pos = observe.push(np.asarray(self.positions, np.int64), dev)
-            parts = [tree.columns.index_select(1, pos).reshape(-1)]
+            dev = tree.packed.device
+            parts = [tree.opened_values(self.positions)]
         # host_chain[0] is pyramid level host_base
         chain_base = tree.host_base
         n_levels = chain_base + len(tree.host_chain)

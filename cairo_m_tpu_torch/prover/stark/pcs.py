@@ -43,13 +43,54 @@ from . import domain, fft, fri, merkle, quotients, stwo_merkle
 P = (1 << 31) - 1
 
 
-def _commit_pipeline(stacked, trace_log: int, commit_log: int):
-    """(k, 2^trace_log) fft-order stack -> (coeffs, fft-order LDE,
-    commit-order LDE).  The fft-order LDE is kept on the phase so the
-    composition plans reuse it instead of re-extending columns."""
-    coeffs = fft.ifft(stacked, trace_log)
-    ext = fft.fft(fft.embed_coeffs(coeffs, trace_log, commit_log), commit_log)
-    return coeffs, ext, domain.bit_reverse(ext, commit_log)
+# a group whose LDE holds more values than this is extended in column
+# blocks of about this many values: the group's outputs are whole, the
+# transforms' temporaries a block's
+_LDE_BLOCK_VALUES = 1 << 27
+
+
+def _commit_pipeline(pieces, trace_log: int, commit_log: int, prepare):
+    """A group's (k_i, 2^trace_log) stacks, ``prepare`` taking each (or a
+    block of its rows) to FFT order -> (coeffs, fft-order LDE,
+    commit-order LDE) stacks of all their columns.  The fft-order LDE is
+    kept on the phase so the composition plans reuse it instead of
+    re-extending columns."""
+    k = sum(int(p.shape[0]) for p in pieces)
+    lanes = int(pieces[0].shape[-1])
+    block = max(1, _LDE_BLOCK_VALUES // (2 * lanes))
+    if k <= block:
+        cols = [prepare(p) for p in pieces]
+        stacked = cols[0] if len(cols) == 1 else torch.cat(cols, dim=0)
+        del cols
+        coeffs = fft.ifft(stacked, trace_log)
+        del stacked
+        ext = fft.fft(fft.embed_coeffs(coeffs, trace_log, commit_log), commit_log)
+        return coeffs, ext, domain.bit_reverse(ext, commit_log)
+    first = pieces[0]
+    coeffs = first.new_empty((k, lanes))
+    ext = first.new_empty((k, 2 * lanes))
+    commit = first.new_empty((k, 2 * lanes))
+    for a in range(0, k, block):
+        b = min(a + block, k)
+        c = fft.ifft(_prepared_rows(pieces, a, b, prepare), trace_log)
+        coeffs[a:b] = c
+        e = fft.fft(fft.embed_coeffs(c, trace_log, commit_log), commit_log)
+        del c
+        ext[a:b] = e
+        commit[a:b] = domain.bit_reverse(e, commit_log)
+    return coeffs, ext, commit
+
+
+def _prepared_rows(pieces, a: int, b: int, prepare):
+    """Rows [a, b) of the pieces' concatenation, in FFT order."""
+    parts, off = [], 0
+    for p in pieces:
+        k = int(p.shape[0])
+        lo, hi = max(a, off), min(b, off + k)
+        if lo < hi:
+            parts.append(prepare(p[lo - off : hi - off]))
+        off += k
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
 
 
 @dataclass
@@ -81,13 +122,19 @@ class CommitmentPhase:
     one Merkle tree per group (native framing) or one mixed-degree tree over
     all columns (stwo framing)."""
 
-    def __init__(self, columns_fft, log_blowup: int, framing: str = "native"):
+    def __init__(self, columns_fft, log_blowup: int, framing: str = "native",
+                 prepare=None):
         """columns_fft: list of (trace_log_size, fft-order M31 evals) —
         1-D entries are single columns, 2-D entries are (k, n) stacks of k
         columns of that log size, all int64 tensors on one device.
+        ``prepare``: given instead, the entries are in another order and
+        ``prepare`` takes a stack of them to FFT order, a group at a time
+        (so that no copy of the whole phase in FFT order is held).
 
         Each column is LDE'd by the blowup and committed on the extended
-        domain.  The *commit log size* of a column = trace_log + blowup."""
+        domain.  The *commit log size* of a column = trace_log + blowup.
+        Under the native framing a tree opens its queried rows from the
+        FFT-order LDE, so the commit-order copy is dropped once hashed."""
         self.framing = framing
         self.trace_logs = []
         # group columns by trace log (stable order within group)
@@ -114,17 +161,18 @@ class CommitmentPhase:
             pieces = groups[l]
             with observe.span("lde", k=counts[l], log=l, commit_log=cl,
                               micro=("micro", "fft k={k} log={log}->{commit_log}")):
-                stacked = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=0)
-                coeffs, ext_cols, commit_cols = _commit_pipeline(stacked, l, cl)
+                coeffs, ext_cols, commit_cols = _commit_pipeline(
+                    pieces, l, cl, prepare or (lambda st: st))
             self.stacked_coeffs[l] = coeffs
             self.stacked_ext[cl] = ext_cols
             if framing == "stwo":
                 stacked_commit[cl] = commit_cols
             else:
                 with observe.span("merkle", log=cl):
-                    self.trees[cl] = merkle.MerkleTree(
-                        commit_cols, defer_top=True, log_size=cl
-                    )
+                    tree = merkle.MerkleTree(commit_cols, defer_top=True, log_size=cl)
+                    tree.open_from_fft_order(ext_cols)
+                    self.trees[cl] = tree
+            del commit_cols
         if framing == "stwo":
             self.stwo_tree = self._stwo_tree(stacked_commit, log_blowup)
             return
@@ -278,12 +326,14 @@ class CommitmentSchemeProver:
         self.config = config
         self.phases: list[CommitmentPhase] = []
 
-    def commit(self, columns_fft):
-        """Commit a phase; mixes its roots into the channel."""
+    def commit(self, columns_fft, prepare=None):
+        """Commit a phase; mixes its roots into the channel.  ``prepare``:
+        see `CommitmentPhase`."""
         phase = CommitmentPhase(
             columns_fft,
             self.config.fri_config.log_blowup_factor,
             framing=self.config.framing,
+            prepare=prepare,
         )
         return self.commit_phase(phase)
 

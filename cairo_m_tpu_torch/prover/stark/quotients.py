@@ -105,23 +105,42 @@ def group_samples(samples):
 _ROW_CHUNK = 64
 
 
-def _batch_term(cols, w, wa, wb, c, dx, dy, dc, px, py):
-    """Quotient term of one sample batch: cols (k, n) device, w (k, 4)
-    int64 device weights, the rest host QM31 tuples, px/py (n,) device
-    -> 4 x (n,)."""
-    # wf_j = sum_i w[i,j] * cols[i], in row chunks so the (chunk, n)
-    # product temporaries stay small; partial sums of reduced products stay
-    # far below 2^63
-    wf = []
-    for j in range(4):
-        acc = 0
-        for s in range(0, cols.shape[0], _ROW_CHUNK):
-            prod = m31.mul(w[s : s + _ROW_CHUNK, j][:, None], cols[s : s + _ROW_CHUNK])
-            acc = acc + prod.sum(dim=0)
-        wf.append(acc % P)
+def _batch_term(chunks, wa, wb, c, dx, dy, dc, px, py):
+    """Quotient term of one sample batch: ``chunks`` (cols (m, n) device,
+    w (m, 4) int64 device weights) over the batch's columns, the rest
+    host QM31 tuples, px/py (n,) device -> 4 x (n,)."""
+    # wf_j = sum_i w[i,j] * cols[i], a chunk of rows at a time so the
+    # (chunk, n) product temporaries stay small; partial sums of reduced
+    # products stay far below 2^63
+    wf = [0, 0, 0, 0]
+    for cols, w in chunks:
+        for j in range(4):
+            wf[j] = wf[j] + m31.mul(w[:, j][:, None], cols).sum(dim=0)
+    wf = [x % P for x in wf]
     numer = qsub(qmul(wf, c), qadd(qmul_m31(wa, py), wb))
     den = qadd(qadd(qmul_m31(dx, px), qmul_m31(dy, py)), dc)
     return qmul(numer, qinv(den))
+
+
+def _row_chunks(stacks, entries, w):
+    """(cols, w) chunks of at most _ROW_CHUNK of the entries' column rows:
+    a view of the stack where the rows run on, else one gather, so no copy
+    of the batch's columns is held whole."""
+    i = 0
+    while i < len(entries):
+        key, r0 = entries[i][0]
+        rows = [r0]
+        while (i + len(rows) < len(entries) and len(rows) < _ROW_CHUNK
+               and entries[i + len(rows)][0][0] == key):
+            rows.append(entries[i + len(rows)][0][1])
+        st = stacks[key]
+        if rows == list(range(r0, r0 + len(rows))):
+            cols = st[r0 : r0 + len(rows)]
+        else:
+            cols = st.index_select(
+                0, observe.push(np.asarray(rows, np.int64), st.device))
+        yield cols, w[i : i + len(rows)]
+        i += len(rows)
 
 
 @lru_cache(maxsize=None)
@@ -136,32 +155,22 @@ def _fft_points(log_size: int, device: torch.device):
 def quotient_column_device(log_size: int, batches, stacks):
     """Evaluate Q_l over the full commit domain in FFT order on the stacks'
     device.  Column handles are (stack_key, row) pairs into ``stacks`` — a
-    dict of (K, n) FFT-order column stacks (one per commitment phase);
-    gathering per stack avoids materializing their concatenation.
+    dict of (K, n) FFT-order column stacks (one per commitment phase),
+    read a chunk of rows at a time (`_row_chunks`): no copy of a batch's
+    columns, nor of their concatenation, is held whole.
 
     FFT order (not commit order) so the FRI prover folds contiguous
     halves."""
     total = None
     for b in batches:
         k = len(b.entries)
-        # entries arrive phase by phase -> contiguous runs per stack
-        pieces = []
-        run_key, run_rows = None, []
-        for (key, row), _, _ in b.entries:
-            if key != run_key and run_rows:
-                pieces.append(_take_rows(stacks[run_key], run_rows))
-                run_rows = []
-            run_key = key
-            run_rows.append(row)
-        if run_rows:
-            pieces.append(_take_rows(stacks[run_key], run_rows))
-        cols = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=0)
-        device = cols.device
+        stack = stacks[b.entries[0][0][0]]
+        device = stack.device
         px, py = _fft_points(log_size, device)
         # a cyclic share of a row mesh (parallel/sharded.py) meets its lanes'
         # points
-        px = sharded.share_of(px, cols, log_size)
-        py = sharded.share_of(py, cols, log_size)
+        px = sharded.share_of(px, stack, log_size)
+        py = sharded.share_of(py, stack, log_size)
         w = np.zeros((k, 4), dtype=np.int64)
         wa, wb = QZERO, QZERO
         _, _, c = line_coeffs(b.z, b.entries[0][1])
@@ -171,16 +180,10 @@ def quotient_column_device(log_size: int, batches, stacks):
             wb = qscalar_add(wb, qscalar_mul(apow, b_i))
             w[i] = apow
         dx, dy, dc = denominator_coeffs(b.z)
-        term = _batch_term(
-            cols, observe.push(w, device), wa, wb, c, dx, dy, dc, px, py,
-        )
+        chunks = _row_chunks(stacks, b.entries, observe.push(w, device))
+        term = _batch_term(chunks, wa, wb, c, dx, dy, dc, px, py)
         total = term if total is None else qadd(total, term)
     return total
-
-
-def _take_rows(stack, rows):
-    idx = observe.push(np.asarray(rows, np.int64), stack.device)
-    return stack.index_select(0, idx)
 
 
 def quotient_value_host(log_size: int, batches, pos: int):

@@ -821,6 +821,10 @@ def run_plan(rows, const_vals, plan: WidePlan, variant: str | None = None):
     return _run_plan_global(rows, consts, plan)
 
 
+# values of the bank rows `run_wide` gathers at a time
+_GATHER_VALUES = 1 << 26
+
+
 def run_wide(stacks, src, sh, const_vals, plan: WidePlan, elog: int,
              fft_order: bool = True):
     """Execute a scheduled plan over (K, 2^elog) device column stacks.
@@ -856,6 +860,8 @@ def run_wide(stacks, src, sh, const_vals, plan: WidePlan, elog: int,
     # row-order position p lives at fft position inv[p]
     inv = np.empty(n, np.int64)
     inv[perm] = pos
+    # the gathers' temporaries hold a block of rows, not the bank
+    step = max(1, _GATHER_VALUES // n)
     for v in np.unique(shifts):
         lane_src = observe.push(inv[(pos + int(v)) % n], device)
         for j, s in enumerate(stacks):
@@ -865,9 +871,11 @@ def run_wide(stacks, src, sh, const_vals, plan: WidePlan, elog: int,
             if sel.size == 0:
                 continue
             r = observe.push(src[sel] - bounds[j], device)
-            rows[observe.push(sel, device)] = (
-                s.index_select(0, r).index_select(1, lane_src)
-            )
+            dst = observe.push(sel, device)
+            for a in range(0, sel.size, step):
+                rows[dst[a : a + step]] = (
+                    s.index_select(0, r[a : a + step]).index_select(1, lane_src)
+                )
     out = run_plan(rows, const_vals, plan)
     if sharded.active_mesh() is not None:
         # every rank computed the whole (small) domain; under a mesh the

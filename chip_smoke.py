@@ -23,6 +23,8 @@ Run from the repository root on a machine with one CUDA card:
                                      # programs against the JAX package
     python3 chip_smoke.py --point-eval  # phases 1 and 15 at fib-100k,
                                         # bench1k and fib(1M)
+    python3 chip_smoke.py --poseidon2  # phases 1, 16 and 17: the poseidon2
+                                       # witness kernel, bigmem's proof
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -217,6 +219,16 @@ Phases (each raises on failure, so the script exits non-zero):
    one wrapper call with its table, and the plain folds, beside the bytes
    bound.  ``--point-eval`` runs it after a warm-up proof at fib-100k, the
    SHA-256 example's ``bench1k`` and fibonacci(1,000,000).
+16. the ``poseidon2`` component's witness kernel (``csrc/poseidon2.cu``)
+   against its plain torch rounds on the card, bit for bit, at 2^20 and
+   2^21 rows from random states, one launch a call, timed (and queued)
+   beside its bytes bound: 16 int32 words read and 443 int64 columns
+   written a row.  Every path of the prover launches it once a proof;
+17. bigmem's ``main`` (``benchmark/programs/bigmem.cm``, 128,000 u32
+   filled and read back) proved at REGULAR_96_BITS and verified: its
+   memory trees' 2,048,986 hashes give the ``poseidon2`` component 2^21
+   rows, made by one launch of the witness kernel; the output is the
+   wrapping sum and the committed element; the peak device memory.
 
 Launch counts are read per path: zeroed just before each path is driven
 and read just after (the segment, command-line and sharded paths count
@@ -282,7 +294,11 @@ BENCH_RUNS = 5  # bench lines of --bench
 SEGMENT_CAP = (1 << 20) - 1
 # the kernels every native-framing path must launch; the global-scratch
 # variant of the wide-tape kernel takes no plan of the prover today
-PATH_KERNELS = ("blake2s_leaves", "blake2s_pyramid", "wtape_run_plan")
+PATH_KERNELS = ("blake2s_leaves", "blake2s_pyramid", "wtape_run_plan",
+                "poseidon2_witness")
+# phase 17: bigmem's main, 128,000 elements (the benchmark's program)
+BIGMEM_PROGRAM = "benchmark/programs/bigmem.cm"
+BIGMEM_N = 128_000
 
 
 _START = time.time()
@@ -2318,6 +2334,76 @@ def phase_point_eval_cells():
     return rows
 
 
+POSEIDON2_ROW_BYTES = 16 * 4 + 443 * 8  # states read, int64 columns written
+
+
+def phase_poseidon2_witness():
+    """Phase 16: the poseidon2 witness kernel against the plain rounds on
+    the card and timed, at 2^20 and 2^21 rows.  -> {rows: row}."""
+    from cairo_m_tpu_torch.hash.poseidon2_params import active_params
+    from cairo_m_tpu_torch.prover.components import generic
+
+    params = active_params()
+    out = {}
+    for log_rows in (20, 21):
+        rows = 1 << log_rows
+        n = rows - 12_345  # the last rows are padding
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(log_rows)
+        states = torch.randint(0, (1 << 31) - 1, (n, 16), generator=gen, device=DEV,
+                               dtype=torch.int64).to(torch.int32)
+        kernels.reset_launches()
+        got = generic.poseidon2_witness(states, rows, params)
+        torch.cuda.synchronize()
+        want = generic.poseidon2_witness_plain(states, rows, params)
+        err = max_abs_err(got, want)
+        if err or kernels.launches["poseidon2_witness"] != 1:
+            raise AssertionError(f"poseidon2 witness at 2^{log_rows} rows: max_abs_err "
+                                 f"{err}, {kernels.launches['poseidon2_witness']} launches")
+        del got, want
+        fn = lambda: generic.poseidon2_witness(states, rows, params)  # noqa: E731
+        bound_ms = rows * POSEIDON2_ROW_BYTES / HBM_BYTES_PER_S * 1e3
+        row = {"max_abs_err": err, "ms": time_ms(fn), "dev_ms": time_ms(fn, queued=True),
+               "plain_ms": time_ms(lambda: generic.poseidon2_witness_plain(
+                   states, rows, params), reps=3),
+               "bound_ms": bound_ms, "bound_by": "bytes", "launches": 1}
+        log(f"  poseidon2 witness, 2^{log_rows} rows ({n} states): max_abs_err 0; "
+            f"kernel {row['ms']:.4f} ms ({row['dev_ms']:.4f} ms queued), bound "
+            f"{bound_ms:.5f} ms (bytes, {POSEIDON2_ROW_BYTES} a row), "
+            f"{row['ms'] / bound_ms:.2f}x the bound; plain rounds {row['plain_ms']:.4f} ms")
+        out[rows] = row
+        del states
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_bigmem():
+    """Phase 17: bigmem's ``main`` proved cold at REGULAR_96_BITS and
+    verified; one launch of the poseidon2 witness kernel at 2^21 rows; the
+    output (N v mod 2^32, v) as limbs.  -> the proof's launches."""
+    with open(os.path.join(REPO, BIGMEM_PROGRAM)) as f:
+        program = compile_cairo(f.read()).program
+    v = 0xFFFFFFF7
+    t = time.time()
+    pi = native_prover_input(program, "main", [v & 0xFFFF, v >> 16], 1 << 30)
+    log(f"  bigmem native VM + adapter: {time.time() - t:.3f} s, {pi.total_steps} "
+        f"cycles, {len(pi.poseidon2_inputs)} Merkle hashes")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches, _, proof = prove_full(pi, config.REGULAR_96_BITS, "bigmem", runs=("cold",))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  peak device memory {peak / 2**30:.2f} GiB ({peak} bytes)")
+    rows = 1 << proof.log_sizes[3]  # the poseidon2 component's
+    want = [(x, 0, 0, 0) for w in (BIGMEM_N * v % (1 << 32), v)
+            for x in (w & 0xFFFF, w >> 16)]
+    got = [tuple(e[1]) for e in proof.public_data.output if e is not None]
+    if rows != 1 << 21 or launches["poseidon2_witness"] != 1 or got != want:
+        raise AssertionError(f"bigmem: poseidon2 at {rows} rows, "
+                             f"{launches['poseidon2_witness']} witness launches, "
+                             f"output {got}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -2347,6 +2433,14 @@ def main():
         phase_point_eval_cells()
         log(f"card: {card_line()}")
         log("stopping after phase 15")
+        return
+    if "--poseidon2" in sys.argv[1:]:
+        phase("phase 16: the poseidon2 witness kernel")
+        phase_poseidon2_witness()
+        phase("phase 17: bigmem, 128,000 elements")
+        phase_bigmem()
+        log(f"card: {card_line()}")
+        log("stopping after phase 17")
         return
     if "--sha256" in sys.argv[1:]:
         gen = torch.Generator(device=DEV)
@@ -2506,6 +2600,9 @@ def main():
     phase("phase 15: the point-evaluation kernel at fib-100k's sample step")
     table_e = phase_point_eval("fib-100k", pi, single_digest)
 
+    phase("phase 16: the poseidon2 witness kernel")
+    table_h = phase_poseidon2_witness()
+
     phase("phase 5b: every AIR component, the witnesses of tests/golden/witnesses.json")
     paths["allops"], table_w = phase_witnesses(gen, load_witnesses())
 
@@ -2559,6 +2656,9 @@ def main():
     # checked again
     paths["wasm"] = phase_wasm(gen, {**table_w, **table_s, **table_b}, cli=False)
 
+    phase("phase 17: bigmem, 128,000 elements")
+    paths["bigmem"] = phase_bigmem()
+
     def entry(name, source, replaces, row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": paths["main"][name],
@@ -2587,10 +2687,15 @@ def main():
         # replaces no Pallas kernel: XLA fused the jitted folds of
         # cairo_m_tpu/prover/stark/fft.py:270; timed on fib-100k's sample step
         entry("point_eval", "cairo_m_tpu_torch/csrc/point_eval.cu", None, table_e),
+        # replaces no Pallas kernel: the JAX package writes these columns in
+        # NumPy on the host; timed at bigmem's 2^21 rows
+        entry("poseidon2_witness", "cairo_m_tpu_torch/csrc/poseidon2.cu", None,
+              table_h[1 << 21]),
     ]}
     log(f"timed shapes: blake2s K={BLAKE2S_MAIN[0]} n={BLAKE2S_MAIN[1]}; blake2s "
         f"pyramid over {PYRAMID_MAIN} leaf digests (all its launches); wtape "
-        f"{WTAPE_MAIN} n=2^20; wtape global: synthetic plan, 2000 bank rows, n=2^12")
+        f"{WTAPE_MAIN} n=2^20; wtape global: synthetic plan, 2000 bank rows, n=2^12; "
+        f"poseidon2 witness 2^21 rows")
     loaded = sorted(m for m, v in sys.modules.items()
                     if v is not None and m.split(".")[0] in ("jax", "cairo_m_tpu"))
     if loaded:

@@ -95,7 +95,8 @@ def test_bench_line_values(fib40_run):
     # prove_s is rounded to milliseconds, the value from the unrounded seconds
     assert line["value"] == pytest.approx(330 / d["prove_s"], rel=1e-3)
     assert line["vs_baseline"] == round(line["value"] / 1e6, 4)
-    assert set(d["phases"]) == {"trace", "interaction", "composition", "pcs", "total"}
+    assert set(d["phases"]) == {"trace", "interaction", "composition", "pcs", "total",
+                                "poseidon2_witness"}
     assert d["warmup_s"] > 0 and d["adapter_s"] > 0
 
 

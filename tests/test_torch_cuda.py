@@ -19,10 +19,11 @@ import torch
 
 from cairo_m_tpu_torch import kernels
 from cairo_m_tpu_torch.compiler import compile_cairo
-from cairo_m_tpu_torch.hash import blake2s
+from cairo_m_tpu_torch.hash import blake2s, poseidon2_params
 from cairo_m_tpu_torch.parallel.sharded import prove_sharded
 from cairo_m_tpu_torch.prover import config
 from cairo_m_tpu_torch.prover.adapter.native_import import native_prover_input
+from cairo_m_tpu_torch.prover.components import generic
 from cairo_m_tpu_torch.prover.components.registry import ComponentSet
 from cairo_m_tpu_torch.prover.prove import prove_cairo_m
 from cairo_m_tpu_torch.prover.relations import Relations
@@ -201,6 +202,27 @@ def test_point_eval_kernel_matches_plain(cuda_device, seed, logs):
     assert kernels.launches["point_eval"] == before + 1
     want = fft.eval_at_points([(c.cpu(), log, pts) for c, log, pts in jobs])
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("log, n", [(10, 1000), (20, 1 << 20), (20, 1_000_003)])
+def test_poseidon2_witness_kernel_matches_plain(cuda_device, log, n):
+    """``csrc/poseidon2.cu``: the poseidon2 component's 443 columns of
+    2^log rows from n random input states (the rest padding: the zero
+    state, enabler 0), in one launch, bit for bit the plain torch rounds'
+    on the card."""
+    rng = np.random.default_rng(log + n)
+    states = torch.from_numpy(
+        rng.integers(0, P, size=(n, 16), dtype=np.int64).astype(np.int32)
+    ).to(cuda_device)
+    params = poseidon2_params.active_params()
+    before = kernels.launches["poseidon2_witness"]
+    got = generic.poseidon2_witness(states, 1 << log, params)
+    torch.cuda.synchronize()
+    assert kernels.launches["poseidon2_witness"] == before + 1
+    assert got.shape == (443, 1 << log) and got.dtype == torch.int64
+    want = generic.poseidon2_witness_plain(states, 1 << log, params)
+    for c in range(443):
+        assert torch.equal(got[c], want[c]), f"column {c}"
 
 
 @pytest.mark.parametrize("variant", ["smem", "global"])

@@ -110,10 +110,15 @@ def test_timing_is_the_phase_spans(runs):
     timing = runs["timing"]
     root = _prove_root(spans)
     phases = {s.name: s.seconds for s in spans if s.parent == root.id}
-    assert set(timing) == {"trace", "interaction", "composition", "pcs", "total"}
+    assert set(timing) == {"trace", "interaction", "composition", "pcs", "total",
+                           "poseidon2_witness"}
     for name, seconds in phases.items():
         assert timing[name] == seconds
     assert timing["total"] == root.seconds
+    # the poseidon2 columns are made once a proof, inside the trace phase
+    (p2,) = [s for s in spans if s.name == "poseidon2_witness"]
+    assert p2.root == root.id and p2.start >= root.start
+    assert timing["poseidon2_witness"] == p2.seconds
 
 
 @pytest.mark.parametrize("key", ["cold", "warm"])

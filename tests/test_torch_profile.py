@@ -80,7 +80,8 @@ def test_profile_prove_command_without_jax(tmp_path):
     assert entry["verified"] is True
     assert set(entry["runs"]) == {"cold"}
     cold = entry["runs"]["cold"]
-    assert set(cold["phases"]) == {"trace", "interaction", "composition", "pcs", "total"}
+    assert set(cold["phases"]) == {"trace", "interaction", "composition", "pcs", "total",
+                                   "poseidon2_witness"}
     assert cold["seconds"] > 0 and cold["peak_device_bytes"] is None
     assert entry["log_sizes"]["store_add_fp_imm"] == 8
     # the last run prints its phase lines
@@ -101,9 +102,10 @@ def test_components_pieces_are_what_the_prover_commits(fib40, monkeypatch):
     commits = []
     orig = pcs.CommitmentSchemeProver.commit
 
-    def commit(self, columns_fft):
-        commits.append(columns_fft)
-        return orig(self, columns_fft)
+    def commit(self, columns, prepare=None):
+        # the columns in the FFT order the phase commits them in
+        commits.append([(l, prepare(st) if prepare else st) for l, st in columns])
+        return orig(self, columns, prepare)
 
     monkeypatch.setattr(pcs.CommitmentSchemeProver, "commit", commit)
     proof, rec, timer = profile.profile_components(fib40, cfg, torch.device("cpu"),
